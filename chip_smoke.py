@@ -2,22 +2,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the apps blur (the README quick-start
-schedule, 2560x1536 u16) and linear_blur (1536x2560x3 f32) through
-`App.bind` and `Pipeline.realize` on the card -- and shows that each went
-through the stencil-group kernel: its launch count is set to 0 just before
-each realize and must have risen just after, with no rejected plan. Each
-kernel is held against its plain PyTorch version on the same inputs and
-each output against the app's numpy golden. Then it times, with CUDA
-events, the kernel (its device time), the plain version and the whole realize
-(what a caller waits for), and breaks one realize of each app down by device
-time with the profiler.
+Builds the port's fixed kernel sources (the scan kernel K2 and the row-
+histogram kernel K3) with nvcc, in parallel, then drives the port's main
+paths through `App.bind` / `Pipeline.realize` on the card:
+
+- blur (the README quick-start schedule, 2560x1536 u16) and linear_blur
+  (1536x2560x3 f32) through the stencil-group kernel K1;
+- iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a;
+- hist (1536x2560x3 u8): one row histogram, K3;
+- a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
+
+Each kernel's launch count is set to 0 just before its path's realize and
+must have the expected value just after (for K1, with no rejected plan).
+Each kernel is called again on the arguments the main path gave it and held
+against its plain PyTorch version, and each output against its golden. Then
+it times, with CUDA events, each kernel (its device time), its plain version,
+the whole realize (what a caller waits for) and, where one PyTorch call
+computes the same function, that call; and breaks one realize of each app
+down by device time with the profiler.
 
 Every phase prints one flushed line with its elapsed seconds. A watchdog
 ends the script with exit code 1 after 600 s, naming the phase it was in.
 It exits 1 without a result where torch sees no CUDA device, and fails
 where the package is not beside it. The last line of its output is
-{"ok": true, "device": {...}}; the line before it is the kernel table.
+{"ok": true, "device": {...}}; the line before it is the kernel table, and
+the line before that the card's name and power limit.
 """
 import json
 import signal
@@ -25,6 +34,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -107,9 +117,13 @@ def count_ops(plan):
     return n[0] * int(np.prod(plan.extents))
 
 
+PORT_KERNELS = ("group_", "scan_lines", "rowhist_blocks")
+
+
 def breakdown(app):
     """Where one realize's time goes: host wall time, the device's busy
-    time from the profiler's kernel events, and the kernels by device
+    time from the profiler's kernel events, split between the port's
+    kernels and the torch ops around them, and the kernels by device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -127,11 +141,87 @@ def breakdown(app):
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy = sum(us for us, _n in by_name.values())
+    ours = sum(us for name, (us, _n) in by_name.items()
+               if any(k in name for k in PORT_KERNELS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     say(f"{app.name} realize: wall {wall_us:.1f} us, device busy "
-        f"{busy:.1f} us (idle share {1 - busy / wall_us:.3f}); by device "
+        f"{busy:.1f} us (idle share {1 - busy / wall_us:.3f}): the port's "
+        f"kernels {ours:.1f} us, torch ops {busy - ours:.1f} us; by device "
         "time: " + "; ".join(f"{name[:70]} {us:.1f} us x{n}"
                              for name, (us, n) in top))
+
+
+def capture(mod, fname, fn):
+    """Run fn() with mod.fname wrapped so that every call's arguments are
+    kept (tensors cloned, so that later writes leave them as they were);
+    -> (fn's result, [(args, kwargs)])."""
+    calls = []
+    orig = getattr(mod, fname)
+
+    def keep(v):
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def spy(*args, **kw):
+        calls.append(([keep(a) for a in args],
+                      {k: keep(v) for k, v in kw.items()}))
+        return orig(*args, **kw)
+
+    setattr(mod, fname, spy)
+    try:
+        return fn(), calls
+    finally:
+        setattr(mod, fname, orig)
+
+
+def check_golden(name, got, ref, rtol, atol):
+    if got.shape != ref.shape:
+        raise SystemExit(f"{name}: shape {got.shape} != {ref.shape}")
+    gerr = float(np.abs(got.astype(np.float64) - ref).max())
+    ok = bool(np.isfinite(got).all()) and np.allclose(
+        got.astype(np.float64), ref, rtol=rtol, atol=atol)
+    say(f"output vs golden: max abs err {gerr!r}, ok {ok} (rtol {rtol}, "
+        f"atol {atol})")
+    if not ok:
+        raise SystemExit(f"{name}: output disagrees with the golden")
+
+
+def scan_vs_plain(calls, tol):
+    """K2 on the main path's arguments against its plain version."""
+    from halide_tpu_torch.ops import scan_kernel as sk
+    err = 0.0
+    for (out, b, init, axis, backward), kw in calls:
+        k = sk.launch(torch.empty_like(out), b, init, axis, backward, **kw)
+        p = sk.linear_scan_plain(b, init, axis, backward, **kw)
+        torch.cuda.synchronize()
+        err = max(err, (k - p).abs().max().item())
+    say(f"scan kernel vs plain version over {len(calls)} calls: max abs "
+        f"err {err!r} (tolerance {tol})")
+    if not err <= tol:
+        raise SystemExit(f"scan kernel disagrees with its plain version: "
+                         f"{err} > {tol}")
+    return err
+
+
+def predicated_scan(width, height, seed=0):
+    """The where-predicated recurrence of tests/test_reductions.py
+    (test_masked_linear_scan): g[x, r] = 0.5 g[x, r-1] + inp[x, r] where r
+    is even. -> (pipeline, its input, the float64 golden)."""
+    import halide_tpu_torch as hl
+    x, y = hl.Var("x"), hl.Var("y")
+    inp = hl.ImageParam(hl.Float(32), 2, "pin")
+    a = np.random.default_rng(seed).random((height, width), np.float32)
+    inp.set(torch.from_numpy(a).cuda())
+    r = hl.RDom(1, height - 1)
+    r.where(r.x % 2 == 0)
+    g = hl.Func("masked_scan")
+    g[x, y] = 0.0
+    g[x, 0] = inp[x, 0]
+    g[x, r.x] = 0.5 * g[x, r.x - 1] + inp[x, r.x]
+    w = np.zeros((height, width), np.float64)
+    w[0] = a[0]
+    for i in range(1, height):
+        w[i] = (0.5 * w[i - 1] + a[i]) if i % 2 == 0 else w[i]
+    return hl.Pipeline(g), w
 
 
 def run_app(app, tile_note, tol):
@@ -181,6 +271,18 @@ def run_app(app, tile_note, tol):
     return plan, inputs, rmins, params, launches, err
 
 
+def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
+               ops, lib_ms, **extra):
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = ops / F32_OPS_PER_S * 1e3
+    return dict({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+        "library_ms": lib_ms}, **extra)
+
+
 def main():
     signal.signal(signal.SIGALRM, _alarm)
     signal.alarm(DEADLINE_S)
@@ -193,8 +295,19 @@ def main():
     card = card_line()
     say(f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     import halide_tpu_torch  # noqa: F401  (fails where the port is absent)
-    from halide_tpu_torch.apps import blur, linear_blur
+    from halide_tpu_torch.apps import blur, hist, iir_blur, linear_blur
+    from halide_tpu_torch.ops import build
     from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    from halide_tpu_torch.ops import scan_kernel as sk
+
+    phase("build")
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(build.load_fixed, n)
+                  for n in ("scan_kernel", "rowhist_kernel")]:
+            f.result()
+    for key, secs in build.builds:
+        say(f"nvcc build {key}: {secs:.1f} s")
 
     phase("blur")
     app_b = blur.build(2560, 1536, tile=(256, 128))
@@ -204,6 +317,68 @@ def main():
     app_l = linear_blur.build(1536, 2560)
     res_l = run_app(app_l, "linear_blur 1536x2560x3 f32, tile 1536x256",
                     1e-4)
+
+    phase("iir_blur")
+    app_i = iir_blur.build(1536, 2560, 0.1)
+    data_i = app_i.make_inputs(0)
+    app_i.bind(data_i)
+    sk.launches["const"] = sk.launches["general"] = 0
+    out_i, calls_i = capture(sk, "linear_scan", app_i.realize)
+    torch.cuda.synchronize()
+    n_i = dict(sk.launches)
+    say(f"1536x2560x3 f32, alpha 0.1: realize ok, scan kernel launches "
+        f"{n_i}")
+    if n_i != {"const": 4, "general": 0}:
+        raise SystemExit(f"iir_blur: the main path did not go through K2a "
+                         f"four times ({n_i})")
+    err_i = scan_vs_plain(calls_i, 1e-5)
+    check_golden("iir_blur", out_i.to_numpy(), app_i.reference(**data_i),
+                 app_i.tolerance, app_i.atol)
+
+    phase("hist")
+    app_h = hist.build(1536, 2560)
+    data_h = app_h.make_inputs(0)
+    app_h.bind(data_h)
+    rk.launches = 0
+    out_h, calls_h = capture(rk, "rowhist", app_h.realize)
+    torch.cuda.synchronize()
+    n_h = rk.launches
+    say(f"1536x2560x3 u8: realize ok, row-histogram kernel launches {n_h}")
+    if n_h != 1 or len(calls_h) != 1:
+        raise SystemExit(f"hist: the main path did not go through K3 once "
+                         f"({n_h} launches)")
+    (lin_h, K_h, scale_h), _kw = calls_h[0]
+    k = rk.launch(lin_h, K_h, scale_h)
+    p = rk.rowhist_plain(lin_h, K_h, scale_h)
+    torch.cuda.synchronize()
+    err_h = (k - p).abs().max().item()
+    say(f"K3 vs plain version on lin {tuple(lin_h.shape)} stride "
+        f"{lin_h.stride()}, K {K_h}: max abs err {err_h!r} (exact)")
+    if not torch.equal(k, p):
+        raise SystemExit("hist: K3 disagrees with its plain version")
+    check_golden("hist", out_h.to_numpy(), app_h.reference(**data_h),
+                 app_h.tolerance, app_h.atol)
+
+    phase("scan_general")
+    pipe_g, golden_g = predicated_scan(1536, 2560)
+    sk.launches["const"] = sk.launches["general"] = 0
+    out_g, calls_g = capture(sk, "linear_scan",
+                             lambda: pipe_g.realize([1536, 2560]))
+    torch.cuda.synchronize()
+    n_g = dict(sk.launches)
+    say(f"where-predicated scan 1536x2560 f32: realize ok, scan kernel "
+        f"launches {n_g}")
+    if n_g != {"const": 0, "general": 1}:
+        raise SystemExit(f"scan_general: the main path did not go through "
+                         f"K2b once ({n_g})")
+    err_g = scan_vs_plain(calls_g, 1e-5)
+    # the same call with coefficients that carry the recurrence far
+    (out0, b0, init0, axis0, bwd0), _kw0 = calls_g[0]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a_r = torch.rand(b0.shape, device="cuda", generator=gen) * 1.9 - 0.95
+    err_g = max(err_g, scan_vs_plain(
+        [((out0, b0, init0, axis0, bwd0), {"a": a_r})], 1e-5))
+    check_golden("scan_general", out_g.to_numpy(), golden_g, 0, 1e-4)
 
     phase("times")
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -221,32 +396,90 @@ def main():
         r_ms = event_ms(app.realize, 20, flush)
         nbytes = sum(a.numel() * a.element_size() for a in inputs) \
             + int(np.prod(plan.extents)) * gk.itemsize(plan.out_type)
-        ops = count_ops(plan)
-        b_bytes, b_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
-            ops / F32_OPS_PER_S * 1e3
+        row = kernel_row(
+            f"K1 stencil group ({app.name})",
+            "halide_tpu_torch/ops/group_kernel.py",
+            "halide_tpu/ops/pallas_group.py:696", launches, err, k_ms, p_ms,
+            nbytes, count_ops(plan), None, realize_ms=r_ms)
+        kernels.append(row)
         say(f"{app.name} on {card}: kernel {k_ms:.4f} ms (device), plain "
             f"version {p_ms:.2f} ms, whole realize {r_ms:.4f} ms (host, to "
-            f"completion); bound "
-            f"{max(b_bytes, b_ops) * 1e3:.2f} us ({nbytes} bytes, {ops} "
-            "ops)")
-        kernels.append({
-            "name": f"K1 stencil group ({app.name})",
-            "route": "cuda",
-            "source": "halide_tpu_torch/ops/group_kernel.py",
-            "replaces": "halide_tpu/ops/pallas_group.py:696",
-            "launches": launches,
-            "max_abs_err": err,
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "realize_ms": r_ms,
-            "bound_ms": max(b_bytes, b_ops),
-            "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-            "library_ms": None,
-            "ok": True,
-        })
+            f"completion); bound {row['bound_ms'] * 1e3:.2f} us ({nbytes} "
+            "bytes)")
+
+    def scan_times(calls):
+        """Summed over the calls: kernel and plain-version ms, bytes, ops."""
+        k_ms = p_ms = 0.0
+        nbytes = ops = 0
+        for (out, b, init, axis, bwd), kw in calls:
+            o = torch.empty_like(out)
+            t_k = event_ms(lambda: sk.launch(o, b, init, axis, bwd, **kw),
+                           30, flush, hold=True)
+            t_p = event_ms(lambda: sk.linear_scan_plain(b, init, axis, bwd,
+                                                        **kw), 3)
+            n = out.numel()
+            nb = 4 * (2 * n + init.numel() + (n if "a" in kw else 0))
+            say(f"  scan {tuple(out.shape)} axis {axis} backward {bwd}: "
+                f"kernel {t_k:.4f} ms, plain {t_p:.2f} ms, bound "
+                f"{nb / HBM_BYTES_PER_S * 1e6:.2f} us ({nb} bytes)")
+            k_ms, p_ms, nbytes, ops = k_ms + t_k, p_ms + t_p, nbytes + nb, \
+                ops + 2 * n
+        return k_ms, p_ms, nbytes, ops
+
+    k_ms, p_ms, nbytes, ops = scan_times(calls_i)
+    r_ms = event_ms(app_i.realize, 20, flush)
+    kernels.append(kernel_row(
+        "K2a scan, constant coefficient (iir_blur, per realize)",
+        "halide_tpu_torch/ops/csrc/scan_kernel.cu",
+        "halide_tpu/ops/pallas_scan.py:39", n_i["const"], err_i, k_ms, p_ms,
+        nbytes, ops, None, realize_ms=r_ms,
+        library_note="no single torch call computes a recurrence with "
+                     "a != 1 (cumsum is a = 1)"))
+    say(f"iir_blur on {card}: K2a x4 {k_ms:.4f} ms (device), plain "
+        f"{p_ms:.2f} ms, whole realize {r_ms:.4f} ms; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us")
+
+    k_ms, p_ms, nbytes, ops = scan_times(calls_g[:1])
+    r_ms = event_ms(lambda: pipe_g.realize([1536, 2560]), 20, flush)
+    kernels.append(kernel_row(
+        "K2b scan, per-element coefficient (predicated scan)",
+        "halide_tpu_torch/ops/csrc/scan_kernel.cu",
+        "halide_tpu/ops/pallas_scan.py:71", n_g["general"], err_g, k_ms,
+        p_ms, nbytes, ops, None, realize_ms=r_ms,
+        library_note="no single torch call computes a recurrence with "
+                     "a != 1 (cumsum is a = 1)"))
+    say(f"scan_general on {card}: K2b {k_ms:.4f} ms (device), plain "
+        f"{p_ms:.2f} ms, whole realize {r_ms:.4f} ms")
+
+    R, P = lin_h.shape
+    k_ms = event_ms(lambda: rk.launch(lin_h, K_h, scale_h), 30, flush,
+                    hold=True)
+    p_ms = event_ms(lambda: rk.rowhist_plain(lin_h, K_h, scale_h), 3)
+    rows = torch.arange(R, device="cuda", dtype=torch.int64)[:, None]
+    lin64 = lin_h.to(torch.int64)
+    keys = (rows * (K_h + 1) + torch.where(
+        (lin64 < 0) | (lin64 >= K_h), K_h, lin64)).reshape(-1)
+    want = torch.bincount(keys, minlength=R * (K_h + 1)).reshape(
+        R, K_h + 1)[:, :K_h].float() * scale_h
+    if not torch.equal(want, k):
+        raise SystemExit("hist: bincount disagrees with K3")
+    # bincount reads its input's maximum back to the host: timed to
+    # completion from an idle card, as a caller waits for it
+    lib_ms = event_ms(lambda: torch.bincount(keys, minlength=R * (K_h + 1)),
+                      30, flush)
+    r_ms = event_ms(app_h.realize, 20, flush)
+    nbytes = lin_h.numel() * 4 + R * K_h * 4
+    kernels.append(kernel_row(
+        "K3 row histogram (hist)", "halide_tpu_torch/ops/csrc/"
+        "rowhist_kernel.cu", "halide_tpu/ops/onehot_mxu.py:103", n_h, err_h,
+        k_ms, p_ms, nbytes, 2 * lin_h.numel(), lib_ms, realize_ms=r_ms))
+    say(f"hist on {card}: K3 {k_ms:.4f} ms (device), plain {p_ms:.2f} ms, "
+        f"bincount {lib_ms:.4f} ms (to completion), whole realize "
+        f"{r_ms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us "
+        f"({nbytes} bytes)")
 
     phase("breakdown")
-    for app in (app_b, app_l):
+    for app in (app_b, app_l, app_i, app_h):
         breakdown(app)
 
     phase("kernels")

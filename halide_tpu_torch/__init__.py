@@ -6,9 +6,11 @@ with hand-written CUDA kernels for an NVIDIA Hopper card (sm_90a). The JAX
 package `halide_tpu` stays beside it as the reference; this package imports
 neither it nor jax.
 
-This slice holds the main path: the front end, `Pipeline.realize`, whole-array
-evaluation (eval_torch) and the stencil-group kernel (ops/group_kernel).
-Realize runs on the card unless the caller passes device="cpu".
+What is ported: the front end, `Pipeline.realize`, whole-array evaluation
+(eval_torch), the stencil-group kernel (ops/group_kernel), and update
+definitions (updates) with the scan kernel (ops/scan_kernel) and the
+row-histogram kernel (ops/rowhist_kernel). Realize runs on the card unless
+the caller passes device="cpu".
 """
 import sys as _sys
 

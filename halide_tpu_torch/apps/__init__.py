@@ -18,7 +18,7 @@ import torch
 
 APPS: Dict[str, Callable] = {}
 
-_APP_MODULES = ["blur", "linear_blur"]
+_APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist"]
 
 
 def register(name: str):

@@ -128,6 +128,16 @@ class Ctx:
         return Ctx(self.ndim, self.axes, bindings, self.realizations,
                    self.params, self.device)
 
+    def extended(self, new_axes: List[Axis]) -> "Ctx":
+        """This context with `new_axes` (an update's rdom axes) added, so
+        that RVar names resolve to array axes."""
+        axes = dict(self.axes)
+        for a in new_axes:
+            axes[a.name] = a
+        ndim = max([self.ndim] + [a.rpos + 1 for a in new_axes])
+        return Ctx(ndim, axes, self.bindings, self.realizations, self.params,
+                   self.device)
+
 
 def _shape_at(ctx_ndim: int, rpos: int, extent: int) -> Tuple[int, ...]:
     s = [1] * ctx_ndim
@@ -164,7 +174,8 @@ def materialize(v, ctx: Ctx):
             t = t * c if c != 1 else t
             out = t if out is None else out + t
         if out is None:
-            return torch.tensor(v.const, dtype=torch.int32, device=ctx.device)
+            return torch.full((), v.const, dtype=torch.int32,
+                              device=ctx.device)
         return out + v.const if v.const else out
     return v
 
@@ -211,6 +222,15 @@ def cast_value(v: torch.Tensor, src: Type, dst: Type) -> torch.Tensor:
     return v.to(compute_dtype(dst))
 
 
+def kastype(v: torch.Tensor, t: Type) -> torch.Tensor:
+    """A value tensor (any compute dtype) -> the compute dtype of Type t,
+    with Halide cast semantics (the JAX package's `_kastype`, whose kernel
+    special cases have no counterpart here; its `_kwhere` has only such
+    cases, so its counterpart is torch.where)."""
+    src = Type("float", 32) if v.is_floating_point() else Int(64)
+    return cast_value(v, src, t)
+
+
 # ---------------------------------------------------------------------------
 # the evaluator
 # ---------------------------------------------------------------------------
@@ -243,7 +263,9 @@ def eval_array(e: Expr, ctx: Ctx) -> torch.Tensor:
 
 
 def _const(value, t: Type, ctx: Ctx) -> torch.Tensor:
-    return torch.tensor(value, dtype=compute_dtype(t), device=ctx.device)
+    # torch.full, not torch.tensor: on the card, torch.tensor copies from
+    # the host and waits for every kernel queued before it
+    return torch.full((), value, dtype=compute_dtype(t), device=ctx.device)
 
 
 def _eval(e: Expr, ctx: Ctx):
@@ -251,7 +273,7 @@ def _eval(e: Expr, ctx: Ctx):
         if e.dtype == Int(32):
             return AVal({}, e.value)
         if e.dtype.is_bool():
-            return torch.tensor(bool(e.value), device=ctx.device)
+            return torch.full((), bool(e.value), device=ctx.device)
         return _const(e.value, e.dtype, ctx)
     if isinstance(e, E.FloatImm):
         return _const(e.value, e.dtype, ctx)
@@ -523,15 +545,11 @@ def _gather_read(P, real: Realized, t: Type, args, ctx: Ctx):
         arr = materialize(v, ctx).to(torch.int64) - real.mins[j]
         # ClampUnsafeAccesses analog: indices clip into the buffer
         idxs.append(arr.clamp(0, P.shape[nd - 1 - j] - 1))
-    # torch cannot index uint16/32/64 tensors: index the covered span in
-    # the compute dtype
-    shaped = list(torch.broadcast_tensors(*reversed(idxs)))
-    Q = P
-    for ax, i in enumerate(shaped):
-        lo, hi = int(i.min()), int(i.max())
-        Q = Q.narrow(ax, lo, hi - lo + 1)
-        shaped[ax] = i - lo
-    return to_compute(Q, t)[tuple(shaped)]
+    # torch cannot index uint16/32/64 tensors: index in the compute dtype
+    # (the whole realization: narrowing it to the indices' span would read
+    # their range back to the host, a wait for the card)
+    shaped = torch.broadcast_tensors(*reversed(idxs))
+    return to_compute(P, t)[tuple(shaped)]
 
 
 def edge_window(P, t: Type, mins, lohi) -> torch.Tensor:

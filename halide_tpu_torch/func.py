@@ -269,9 +269,14 @@ class Stage:
         s = self._sched
         if s.atomic or s.allow_races:
             return
-        raise NotImplementedError(
-            "the associativity proof for parallel RVars comes with update "
-            "definitions in slice 2 of the port")
+        from .updates import _decompose_combine
+        d = self.func._defs[self.index]
+        for i, v in enumerate(d.values):
+            if _decompose_combine(v, self.func, d.args, i) is None:
+                raise CompileError(
+                    f"{self.func.name}: cannot parallelize an RVar of a "
+                    "non-associative update; use atomic(), rfactor(), or "
+                    "allow_race_conditions()")
 
     def vectorize(self, var, factor=None, tail=TailStrategy.Auto) -> "Stage":
         return self._mark(var, ForType.VECTORIZED, factor, tail)

@@ -50,11 +50,6 @@ import collections
 import ctypes
 import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -66,6 +61,7 @@ from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
 from ..func import Func
 from ..htypes import Type, torch_dtype
 from ..visitors import mutate, substitute
+from . import build as _build
 
 # ---------------------------------------------------------------------------
 # counters and records
@@ -74,7 +70,7 @@ from ..visitors import mutate, substitute
 launches = 0                               # kernel launches on a CUDA tensor
 rejects: collections.Counter = collections.Counter()   # reason -> count
 last_plan: Optional[dict] = None           # the most recent group's plan
-builds: List[Tuple[str, float]] = []       # (source hash, nvcc seconds)
+builds = _build.builds                     # (library key, nvcc seconds)
 
 # shared memory a block may take: the sub-tile is the one with the least
 # on-chip bytes per output element that fits _SMEM_TARGET (several blocks
@@ -85,9 +81,7 @@ _THREADS = 256
 _SUB_X = (128, 64, 32)
 _SUB_Y = (64, 32, 16, 8, 4, 2, 1)
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_NVCC_TIMEOUT_S = 180
+_CSRC = _build.CSRC
 
 
 class GroupUnsupported(Exception):
@@ -324,7 +318,7 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
     for m in members:
         if len(m._defs) > 1:
             raise GroupUnsupported(
-                f"member {m.name}: update definition (slice 2)")
+                f"member {m.name}: update definition")
         if len(m._defs[0].values) > 1:
             raise GroupUnsupported(f"member {m.name}: multi-value")
         if m._fschedule.debug_file:
@@ -968,48 +962,19 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
 # build and launch
 # ---------------------------------------------------------------------------
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return "/usr/local/cuda/bin/nvcc"
-
-
 def build(plan: GroupPlan) -> ctypes.CDLL:
     """nvcc the plan's source into build/kernels/<hash>.so (once per
-    source) and load it. Raises with nvcc's stderr on failure."""
+    source, through ops/build.py) and load it. Raises with nvcc's stderr
+    on failure."""
     h = plan.symbol
-    lib = _LIBS.get(h)
-    if lib is not None:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{h}.so"
-    if not so.exists():
-        cu = BUILD_DIR / f"{h}.cu"
+    cu = _build.BUILD_DIR / f"{h}.cu"
+    if not (_build.BUILD_DIR / f"{h}.so").exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cu.write_text(plan.source)
-        tmp = BUILD_DIR / f"{h}.{os.getpid()}.so"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-               "-fmad=false", "-I", str(_CSRC), "-o", str(tmp), str(cu)]
-        t0 = time.time()
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=_NVCC_TIMEOUT_S)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {cu} (exit {r.returncode}):\n{r.stderr}")
-        os.replace(tmp, so)
-        builds.append((h, time.time() - t0))
-    try:
-        lib = ctypes.CDLL(str(so))
-    except OSError as ex:
-        raise RuntimeError(f"cannot load {so}: {ex}") from ex
+    lib = _build.load(h, cu)
     fn = getattr(lib, f"launch_{h}")
     fn.argtypes = list(plan.arg_types) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _LIBS[h] = lib
     return lib
 
 

@@ -7,8 +7,9 @@ src/Pipeline.cpp:512-1024, src/Lower.cpp:136-608). Lowering here is:
 1. gather the func graph (reference: RealizationOrder.cpp / FindCalls.cpp)
 2. pick materialized vs inlined stages from the schedules
 3. required-region inference outside-in (reference: BoundsInference.cpp)
-4. evaluate each materialized stage whole-array in torch (eval_torch); a
-   tiled Func with `compute_at` producers goes to the stencil-group kernel
+4. evaluate each materialized stage whole-array in torch (eval_torch), its
+   update definitions applied in order (updates); a tiled Func with
+   `compute_at` producers goes to the stencil-group kernel
    (ops/group_kernel), one launch for the group
 5. cache the planned graph (bounds and group plans) per graph, sizes and
    bound inputs, so a repeated realize only executes
@@ -28,7 +29,7 @@ from .buffer import Buffer, ImageParam, Param, Realization
 from .eval_torch import Axis, Ctx, Realized, eval_array, full_shape, static_int
 from .expr import CompileError, Expr
 from .func import Func
-from .htypes import torch_dtype
+from .htypes import compute_dtype, torch_dtype
 from .visitors import walk
 
 __all__ = ["Pipeline", "resolve_device"]
@@ -234,6 +235,7 @@ class _BoundsPass:
             box = self.boxes.get(id(f))
             if box is None or not box.defined():
                 continue      # materialized but unused
+            self._self_fixpoint(f, box)
             if _too_big_region(box):
                 raise CompileError(
                     f"required region of {f.name} exceeds "
@@ -241,9 +243,45 @@ class _BoundsPass:
                     "unreasonably large range); add clamp() or bound()")
             self._footprints(f, box)
 
+    def _def_scope(self, f: Func, d, box: Box) -> Dict[str, Interval]:
+        """Pure vars over the box, RVars over their ranges."""
+        scope: Dict[str, Interval] = {}
+        for i, v in enumerate(f._args):
+            scope[v.name] = box.dims[i]
+        if d.rdom is not None:
+            for rv in d.rdom.dims:
+                mn = self.engine.bounds(rv.rmin, scope)
+                ex = self.engine.bounds(rv.rextent, scope)
+                scope[rv.name] = Interval(mn.lo, mn.hi + ex.hi - 1)
+        return scope
+
+    def _self_fixpoint(self, f: Func, box: Box):
+        """Grow box[f] to cover its own updates' reads and writes."""
+        for _ in range(16):
+            changed = False
+            for d in f._defs[1:]:
+                scope = self._def_scope(f, d, box)
+                ivs = [(i, a) for i, a in enumerate(d.args)]
+                for e in list(d.values) + list(d.predicates):
+                    for call in _find_calls_to(e, f):
+                        ivs.extend(enumerate(call.args))
+                for i, a in ivs:
+                    iv = self.engine.bounds(a, scope)
+                    if not iv.is_bounded():
+                        raise CompileError(
+                            f"{f.name}: cannot bound update access on dim "
+                            f"{i}: {a!r}")
+                    old = box.dims[i]
+                    box.union_dim(i, iv)
+                    if box.dims[i] != old:
+                        changed = True
+            if not changed:
+                return
+        raise CompileError(f"{f.name}: self-bounds did not converge")
+
     def _footprints(self, f: Func, box: Box):
         for d in f._defs:
-            scope = {v.name: box.dims[i] for i, v in enumerate(f._args)}
+            scope = self._def_scope(f, d, box)
             exprs = list(d.values) + list(d.predicates) + [
                 a for a in d.args if not isinstance(a, E.Variable)]
             for e in exprs:
@@ -282,6 +320,17 @@ class _BoundsPass:
                 "inline reductions come in slice 2 of the port")
         for c in e.children():
             self._visit(c, scope, skip_self)
+
+
+def _find_calls_to(e: Expr, f: Func):
+    out = []
+
+    def fn(n):
+        if isinstance(n, E.Call) and n.target is f:
+            out.append(n)
+
+    walk(e, fn)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -513,26 +562,56 @@ class Pipeline:
                                   "the port")
 
 
+def _owned(arrays, ctx0: Ctx) -> List[torch.Tensor]:
+    """The tensors an update may write in place: contiguous, and copied
+    where one aliases an input, another Func's realization or another value
+    of the same Func."""
+    taken = {a.untyped_storage().data_ptr()
+             for real in ctx0.realizations.values() for a in real.arrays}
+    out = []
+    for a in arrays:
+        a = a.contiguous()
+        ptr = a.untyped_storage().data_ptr()
+        if ptr in taken:
+            a = a.clone()
+            ptr = a.untyped_storage().data_ptr()
+        taken.add(ptr)
+        out.append(a)
+    return out
+
+
 def _evaluate_func(f: Func, box: Box, ctx0: Ctx) -> Realized:
-    """Whole-array evaluation of a pure Func over `box`, stored in the
-    storage dtype of each value's Type."""
-    if len(f._defs) > 1:
-        raise NotImplementedError(
-            f"{f.name}: update definitions come in slice 2 of the port")
+    """Whole-array evaluation of a Func over `box`, its update definitions
+    applied in order, stored in the storage dtype of each value's Type."""
+    from .updates import apply_update
     axes = {v.name: Axis(v.name, i, int(box.dims[i].lo),
                          int(box.dims[i].extent()))
             for i, v in enumerate(f._args)}
     ctx = Ctx(f.dimensions(), axes, {}, ctx0.realizations, ctx0.params,
               ctx0.device)
     shape = full_shape(ctx, list(axes.values()))
+    types = [v.dtype for v in f._defs[0].values]
+    updates = f._defs[1:]
     arrays = []
-    for v in f._defs[0].values:
+    for v, t in zip(f._defs[0].values, types):
+        # while updates run, values stay in the compute dtype
+        dt = compute_dtype(t) if updates else torch_dtype(t)
         if isinstance(v, E.Intrin) and v.name == "undef":
             # undef(): storage left uninitialized in the reference; zeros
             # keep determinism
-            arrays.append(torch.zeros(shape, dtype=torch_dtype(v.dtype),
-                                      device=ctx.device))
+            arrays.append(torch.zeros(shape, dtype=dt, device=ctx.device))
             continue
-        arr = eval_array(v, ctx).expand(shape)
-        arrays.append(arr.to(torch_dtype(v.dtype)).contiguous())
-    return Realized(arrays, box.mins(), f.name)
+        arrays.append(eval_array(v, ctx).expand(shape).to(dt).contiguous())
+    if not updates:
+        return Realized(arrays, box.mins(), f.name)
+    # updates write their Func's tensors in place where they can (the scan
+    # kernel writes its span directly): first make sure nothing else holds
+    # them
+    current = _owned(arrays, ctx0)
+    for d in updates:
+        ctx_u = Ctx(f.dimensions(), axes, {}, dict(ctx0.realizations),
+                    ctx0.params, ctx0.device)
+        ctx_u.realizations[id(f)] = Realized(current, box.mins(), f.name)
+        current = _owned(apply_update(f, d, current, ctx_u), ctx0)
+    return Realized([a.to(torch_dtype(t)) for a, t in zip(current, types)],
+                    box.mins(), f.name)

@@ -1,8 +1,10 @@
-"""The apps of the port's first slice against the JAX package's apps and
-their numpy goldens, on the CPU at the small sizes of tests/test_apps.py,
-with its comparison rules: bit for bit where the app's tolerance is 0 (blur,
-u16), else within the app's rtol/atol (linear_blur: 1e-4, which covers the
-two libms' pow and XLA's fused multiply-adds)."""
+"""The apps of the port against the JAX package's apps and their numpy
+goldens, on the CPU at the small sizes of tests/test_apps.py, with its
+comparison rules: bit for bit where the app's tolerance is 0 (blur, u16),
+else within the app's rtol/atol (linear_blur: 1e-4, which covers the two
+libms' pow and XLA's fused multiply-adds; iir_blur: 2e-3; hist: atol 2, for
+the float Y that may fall into a neighbouring bin where it lies within an
+ulp of an integer)."""
 import numpy as np
 import pytest
 import torch
@@ -11,6 +13,7 @@ from halide_tpu.apps import get as jax_get
 from halide_tpu_torch.apps import get as torch_get
 from halide_tpu_torch.apps import inputs_from_numpy
 from halide_tpu_torch.ops import group_kernel as gk
+from halide_tpu_torch.ops import rowhist_kernel
 
 SMALL = dict(width=96, height=64)
 
@@ -85,3 +88,29 @@ def test_inputs_from_numpy_moves_image_inputs():
     assert isinstance(t, torch.Tensor) and t.is_contiguous()
     assert t.dtype == torch.float32 and tuple(t.shape) == (3, 8, 16)
     np.testing.assert_array_equal(t.numpy(), data["input"])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["iir_blur", "hist"])
+def test_update_definition_apps(name, seed, monkeypatch):
+    app, data, got, want = _run_both(name, monkeypatch, seed=seed, **SMALL)
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def test_hist_through_the_row_histogram_route(monkeypatch):
+    """At 640 pixels a row, hist_rows takes K3's route (its plain version
+    on the CPU)."""
+    calls = []
+    orig = rowhist_kernel.rowhist
+
+    def spy(lin2d, K, scale=1.0):
+        calls.append((tuple(lin2d.shape), K, scale))
+        return orig(lin2d, K, scale)
+
+    monkeypatch.setattr(rowhist_kernel, "rowhist", spy)
+    app, data, got, want = _run_both("hist", monkeypatch, width=640,
+                                     height=300)
+    assert calls == [((300, 640), 256, 1.0)]
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
