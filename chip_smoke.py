@@ -8,6 +8,10 @@ paths through `App.bind` / `Pipeline.realize` on the card:
 
 - blur (the README quick-start schedule, 2560x1536 u16) and linear_blur
   (1536x2560x3 f32) through the stencil-group kernel K1;
+- interpolate (1536x2560x4 f32, 10 levels) and local_laplacian
+  (1536x2560x3 u16, 8 pyramid levels, 8 intensity levels) through K1 with
+  div-indexed windows (the half-resolution level read at x / 2), tile
+  256x64;
 - iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a;
 - hist (1536x2560x3 u8): one row histogram, K3;
 - a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
@@ -29,6 +33,7 @@ where the package is not beside it. The last line of its output is
 the line before that the card's name and power limit.
 """
 import json
+import math
 import signal
 import statistics
 import subprocess
@@ -102,19 +107,48 @@ def event_ms(fn, iters, flush=None, hold=False):
 
 
 def count_ops(plan):
-    """Operations the group's point expressions do per output point, summed
-    over its stages (each stage counted once per output point, without the
-    halo the kernel recomputes)."""
+    """Operations the group's point expressions do: the output's at each of
+    its points, each member's at each output (x, y) point times its static
+    dims (local_laplacian's 8 planes), without the halo the kernel
+    recomputes."""
     from halide_tpu_torch import expr as E
     from halide_tpu_torch.visitors import walk
-    n = [0]
 
-    def fn(e):
-        if isinstance(e, (E.Binary, E.Select, E.Intrin, E.Not)):
-            n[0] += 1
-    for v in [plan.value] + [m.value for m in plan.members]:
+    def ops(v):
+        n = [0]
+
+        def fn(e):
+            if isinstance(e, (E.Binary, E.Select, E.Intrin, E.Not)):
+                n[0] += 1
         walk(v, fn)
-    return n[0] * int(np.prod(plan.extents))
+        return n[0]
+    per_xy = plan.extents[plan.xi] * (
+        plan.extents[plan.yi] if plan.yi is not None else 1)
+    total = ops(plan.value) * int(np.prod(plan.extents))
+    for m in plan.members:
+        total += ops(m.value) * per_xy * int(np.prod(
+            [e for k, _d, _o, e in m.dims if k == "s"]))
+    return total
+
+
+def window_bytes(plan, inputs, rmins):
+    """Bytes of the inputs a group must read: each window's footprint over
+    all sub-tiles (the union of its staged boxes), within the realized
+    region, read once."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    origins = list(gk._origins(plan))
+    total = 0
+    for w, arr, rmin in zip(plan.windows, inputs, rmins):
+        boxes = [gk._stage_box(w, x0, y0) for x0, y0 in origins]
+        n = 1
+        for j in range(len(w.dims)):
+            size = arr.shape[arr.ndim - 1 - j]
+            lo = max(min(b[j][0] for b in boxes), rmin[j])
+            hi = min(max(b[j][0] + b[j][1] - 1 for b in boxes),
+                     rmin[j] + size - 1)
+            n *= max(hi - lo + 1, 0)
+        total += n * arr.element_size()
+    return total
 
 
 PORT_KERNELS = ("group_", "scan_lines", "rowhist_blocks")
@@ -173,14 +207,19 @@ def capture(mod, fname, fn):
         setattr(mod, fname, orig)
 
 
-def check_golden(name, got, ref, rtol, atol):
+def check_golden(name, got, ref, rtol, atol, frac=0.0):
+    """The output against its golden (the rule of tests/test_apps.py):
+    finite, and |got - ref| <= atol + rtol |ref| on all but a share `frac`
+    of the points (an app's mismatch share; 0 elsewhere, so that zero
+    tolerances mean bit for bit)."""
     if got.shape != ref.shape:
         raise SystemExit(f"{name}: shape {got.shape} != {ref.shape}")
-    gerr = float(np.abs(got.astype(np.float64) - ref).max())
-    ok = bool(np.isfinite(got).all()) and np.allclose(
-        got.astype(np.float64), ref, rtol=rtol, atol=atol)
-    say(f"output vs golden: max abs err {gerr!r}, ok {ok} (rtol {rtol}, "
-        f"atol {atol})")
+    gf, rf = got.astype(np.float64), np.asarray(ref, np.float64)
+    gerr = float(np.abs(gf - rf).max())
+    bad = float((np.abs(gf - rf) > atol + rtol * np.abs(rf)).mean())
+    ok = bool(np.isfinite(got).all()) and bad <= frac
+    say(f"output vs golden: max abs err {gerr!r}, share beyond atol {atol} "
+        f"+ rtol {rtol} {bad!r} (allowed {frac}), ok {ok}")
     if not ok:
         raise SystemExit(f"{name}: output disagrees with the golden")
 
@@ -224,10 +263,14 @@ def predicated_scan(width, height, seed=0):
     return hl.Pipeline(g), w
 
 
-def run_app(app, tile_note, tol):
+def run_app(app, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf):
     """One app on the main path: bind, realize on the card with the counts
-    at 0, then hold the kernel against its plain version and the output
-    against the golden."""
+    at 0 (exactly one K1 launch and no rejected plan), then hold the kernel
+    against its plain version (|k - p| <= tol + rtol |p| on all but a share
+    `frac` of the points, and |k - p| <= `cap` on every point) and the
+    output against the golden (the app's own rule). -> the group's call,
+    its launches, the kernel's max abs error against its plain version and
+    the plain version's ms (one call)."""
     from halide_tpu_torch.ops import group_kernel as gk
     data = app.make_inputs(0)
     app.bind(data)                         # onto the card
@@ -239,36 +282,32 @@ def run_app(app, tile_note, tol):
     launches, rejects = gk.launches, dict(gk.rejects)
     say(f"{tile_note}: realize ok, kernel launches {launches}, "
         f"rejects {rejects}, plan {gk.last_plan}")
-    if launches < 1 or rejects:
+    if launches != 1 or rejects:
         raise SystemExit(f"{app.name}: the main path did not go through "
-                         f"the group kernel (launches {launches}, rejects "
-                         f"{rejects})")
+                         f"the group kernel once (launches {launches}, "
+                         f"rejects {rejects})")
     for h, secs in gk.builds[built:]:
         say(f"nvcc build {h}: {secs:.1f} s")
     plan, inputs, rmins, params, _realz = gk.group_call(app.pipeline)
     kern = gk.launch(plan, inputs, rmins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
     torch.cuda.synchronize()
-    err = (kern.double() - plain.double()).abs().max().item()
-    say(f"kernel vs plain version: max abs err {err!r} (tolerance {tol})")
-    if not err <= tol:
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    diff = (kern.double() - plain.double()).abs()
+    err = diff.max().item()
+    bad = (diff > tol + rtol * plain.double().abs()).double().mean().item()
+    say(f"kernel vs plain version ({plain_ms / 1e3:.1f} s): max abs err "
+        f"{err!r} (allowed {cap}), share beyond {tol} + {rtol} |p| {bad!r} "
+        f"(allowed {frac})")
+    if not (bad <= frac and err <= cap):
         raise SystemExit(f"{app.name}: kernel disagrees with its plain "
-                         f"version: {err} > {tol}")
-    got = out.to_numpy()
-    ref = app.reference(**data)
-    if got.shape != ref.shape:
-        raise SystemExit(f"{app.name}: shape {got.shape} != {ref.shape}")
-    if tol == 0:
-        ok = np.array_equal(got, ref)
-        gerr = float(np.abs(got.astype(np.float64) - ref).max())
-    else:
-        ok = bool(np.isfinite(got).all()) and np.allclose(
-            got, ref, rtol=app.tolerance, atol=app.atol)
-        gerr = float(np.abs(got - ref).max())
-    say(f"output vs numpy golden: max abs err {gerr!r}, ok {ok}")
-    if not ok:
-        raise SystemExit(f"{app.name}: output disagrees with the golden")
-    return plan, inputs, rmins, params, launches, err
+                         f"version: {bad} of the points beyond {tol} + "
+                         f"{rtol} |p|, max abs err {err}")
+    check_golden(app.name, out.to_numpy(), app.reference(**data),
+                 app.tolerance, app.atol, app.mismatch_frac)
+    return plan, inputs, rmins, params, launches, err, plain_ms
 
 
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
@@ -295,7 +334,8 @@ def main():
     card = card_line()
     say(f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     import halide_tpu_torch  # noqa: F401  (fails where the port is absent)
-    from halide_tpu_torch.apps import blur, hist, iir_blur, linear_blur
+    from halide_tpu_torch.apps import (blur, hist, iir_blur, interpolate,
+                                       linear_blur, local_laplacian)
     from halide_tpu_torch.ops import build
     from halide_tpu_torch.ops import group_kernel as gk
     from halide_tpu_torch.ops import rowhist_kernel as rk
@@ -317,6 +357,16 @@ def main():
     app_l = linear_blur.build(1536, 2560)
     res_l = run_app(app_l, "linear_blur 1536x2560x3 f32, tile 1536x256",
                     1e-4)
+
+    phase("interpolate")
+    app_p = interpolate.build(1536, 2560)
+    res_p = run_app(app_p, "interpolate 1536x2560x4 f32, 10 levels, tile "
+                    "256x64", 0.0, rtol=1e-5)
+
+    phase("local_laplacian")
+    app_ll = local_laplacian.build(1536, 2560)
+    res_ll = run_app(app_ll, "local_laplacian 1536x2560x3 u16, 8+8 levels, "
+                     "tile 256x64", 0.0, frac=0.003, cap=2.0)
 
     phase("iir_blur")
     app_i = iir_blur.build(1536, 2560, 0.1)
@@ -387,25 +437,27 @@ def main():
         scratch.zero_()
 
     kernels = []
-    for app, (plan, inputs, rmins, params, launches, err) in (
-            (app_b, res_b), (app_l, res_l)):
+    for app, (plan, inputs, rmins, params, launches, err, p_ms) in (
+            (app_b, res_b), (app_l, res_l), (app_p, res_p),
+            (app_ll, res_ll)):
         k_ms = event_ms(lambda: gk.launch(plan, inputs, rmins), 30, flush,
                         hold=True)
-        p_ms = event_ms(lambda: gk.run_plain(plan, inputs, rmins, params,
-                                             inputs[0].device), 3)
         r_ms = event_ms(app.realize, 20, flush)
-        nbytes = sum(a.numel() * a.element_size() for a in inputs) \
+        nbytes = window_bytes(plan, inputs, rmins) \
             + int(np.prod(plan.extents)) * gk.itemsize(plan.out_type)
+        ops = count_ops(plan)
         row = kernel_row(
             f"K1 stencil group ({app.name})",
             "halide_tpu_torch/ops/group_kernel.py",
             "halide_tpu/ops/pallas_group.py:696", launches, err, k_ms, p_ms,
-            nbytes, count_ops(plan), None, realize_ms=r_ms)
+            nbytes, ops, None, realize_ms=r_ms, sub_tile=[plan.sx, plan.sy],
+            smem_bytes=plan.smem,
+            library_note="no single PyTorch call computes a fused group")
         kernels.append(row)
         say(f"{app.name} on {card}: kernel {k_ms:.4f} ms (device), plain "
-            f"version {p_ms:.2f} ms, whole realize {r_ms:.4f} ms (host, to "
-            f"completion); bound {row['bound_ms'] * 1e3:.2f} us ({nbytes} "
-            "bytes)")
+            f"version {p_ms:.1f} ms (one call), whole realize {r_ms:.4f} ms "
+            f"(host, to completion); bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({nbytes} bytes, {ops} operations)")
 
     def scan_times(calls):
         """Summed over the calls: kernel and plain-version ms, bytes, ops."""
@@ -479,7 +531,7 @@ def main():
         f"({nbytes} bytes)")
 
     phase("breakdown")
-    for app in (app_b, app_l, app_i, app_h):
+    for app in (app_b, app_l, app_p, app_ll, app_i, app_h):
         breakdown(app)
 
     phase("kernels")

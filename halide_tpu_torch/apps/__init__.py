@@ -18,7 +18,8 @@ import torch
 
 APPS: Dict[str, Callable] = {}
 
-_APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist"]
+_APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
+                "local_laplacian"]
 
 
 def register(name: str):

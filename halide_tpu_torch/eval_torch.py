@@ -463,6 +463,9 @@ def _eval_call(e: E.Call, ctx: Ctx):
     args = [evaluate(a, ctx) for a in e.args]
     used = []
     for v in args:
+        if isinstance(v, DivAVal):
+            used.append(v.var)
+            continue
         av = v.aval if isinstance(v, ClampedAVal) else v
         if not isinstance(av, AVal) or len(av.coeffs) > 1:
             return _gather_read(P, real, e.dtype, args, ctx)
@@ -473,17 +476,35 @@ def _eval_call(e: E.Call, ctx: Ctx):
 
 
 def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
-    """Affine (possibly clamped) access with one var per dim, as slices.
-    Along each dim the read positions are clamp(u(x), lo, hi) for the raw
-    affine positions u(x), then edge-replicated into the realization (a
-    clamp whose bounds exceed the realized region reads the edge, as the
-    reference's edge-pad does). A unit-stride span inside both stays a
-    view; any other dim is one index_select over the converted window."""
+    """Affine (possibly clamped) or div-indexed access with one var per dim,
+    as slices. Along each affine dim the read positions are clamp(u(x), lo,
+    hi) for the raw affine positions u(x), then edge-replicated into the
+    realization (a clamp whose bounds exceed the realized region reads the
+    edge, as the reference's edge-pad does). A unit-stride span inside both
+    stays a view; any other affine dim is one index_select over the
+    converted window. A div-indexed dim, (x + c) // d, is the span of
+    positions it reads, each repeated d times, from the phase of x's first
+    value on; one that leaves the realization is gathered (clipped into
+    it), as before."""
     nd = P.ndim
     out_axes: List[Optional[Axis]] = []
     spans, picks = [], []
     for j, v in enumerate(args):          # j = pipeline dim
         npax = nd - 1 - j
+        if isinstance(v, DivAVal):
+            ax_out = ctx.axes.get(v.var)
+            if ax_out is None:
+                return _gather_read(P, real, t, args, ctx)
+            first = ax_out.min + v.const
+            u_lo = first // v.div
+            u_hi = (first + ax_out.extent - 1) // v.div
+            a = u_lo - real.mins[j]
+            if a < 0 or u_hi - real.mins[j] >= P.shape[npax]:
+                return _gather_read(P, real, t, args, ctx)
+            spans.append((npax, a, u_hi - u_lo + 1))
+            picks.append((v.div, first - u_lo * v.div, ax_out.extent))
+            out_axes.append(ax_out)
+            continue
         lo_clip, hi_clip = -math.inf, math.inf
         clamped = isinstance(v, ClampedAVal)
         if clamped:
@@ -524,8 +545,15 @@ def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
     for npax, lo, n in spans:
         Q = Q.narrow(npax, lo, n)
     Q = to_compute(Q, t)
-    for (npax, _lo, _n), pick in zip(spans, picks):
-        if pick is not None:
+    for (npax, _lo, n), pick in zip(spans, picks):
+        if isinstance(pick, tuple):
+            d, phase, ext = pick
+            shp = list(Q.shape)
+            Q = Q.unsqueeze(npax + 1).expand(
+                shp[:npax + 1] + [d] + shp[npax + 1:]).reshape(
+                shp[:npax] + [n * d] + shp[npax + 1:]).narrow(npax, phase,
+                                                              ext)
+        elif pick is not None:
             Q = Q.index_select(npax, pick)
     # place the kept axes at their context positions
     kept = sorted((ctx.ndim - 1 - ax.rpos, nd - 1 - j)
@@ -619,10 +647,28 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
         if n == "buffer_min":
             return AVal({}, real.mins[i])
         return AVal({}, real.arrays[0].shape[real.arrays[0].ndim - 1 - i])
+    if n == "lerp":
+        return _lerp(eval_array(e.args[0], ctx), eval_array(e.args[1], ctx),
+                     eval_array(e.args[2], ctx), e.dtype, e.args[2].dtype)
     if n == "undef":
         raise CompileError("undef() may only appear as a whole update value")
     raise NotImplementedError(
         f"intrinsic {n!r} is not ported yet (later slice of the port)")
+
+
+def _lerp(zero, one, w, t: Type, wt: Type):
+    """The reference's lerp: zero * (1 - w) + one * w (not zero + w *
+    (one - zero)); a uint weight spans its range (w / (2^bits - 1)), a bool
+    weight selects, and an integer result is computed in f32 and rounded
+    half to even."""
+    if wt.is_bool():
+        return torch.where(w, one, zero)
+    if wt.is_uint():
+        w = w.to(torch.float32) / float((1 << wt.bits) - 1)
+    if t.is_float():
+        return zero * (1.0 - w) + one * w
+    r = zero.to(torch.float32) * (1.0 - w) + one.to(torch.float32) * w
+    return kastype(torch.round(r), t)
 
 
 def static_int(e: Expr, ctx: Ctx) -> int:

@@ -40,9 +40,22 @@ memory budget) is evaluated whole-array by the caller, as the JAX package
 does; the reason is counted in `rejects`. A build or launch failure never
 falls back: it raises.
 
+Div-indexed windows: an input read at (x + c) / d under the tile (the
+pyramid upsample, the grid slice) is staged as the window of its own
+coordinates, starting at floor(x0 / d) + off (floor division, `hl_div`, in
+the kernel) with one element of slack, and the read indexes it at
+(x + c) / d - lo: the repeat is index arithmetic. This replaces the JAX
+package's in-kernel repeat (`eval_jnp._kernel_repeat`, a one-hot MXU
+product or a broadcast + reshape, gated by the probes
+`pallas_group._repeat_kernel_ok` and `eval_jnp._reshape_repeat_ok`); its
+host pre-expansion of lane-axis windows (`Realized.prediv`) and partial
+pre-expansion of sublane-axis ones work around Mosaic's layout rules and
+have no counterpart. A member whose footprint is div-indexed is rejected,
+as the JAX planner derives div symbols for inputs only.
+
 Not ported yet: the sliding-window carry of store_at producers (they are
-recomputed per sub-tile: same values), the megacore band split,
-double-buffered input staging, and div-indexed windows (rejected).
+recomputed per sub-tile: same values), the megacore band split and
+double-buffered input staging.
 """
 from __future__ import annotations
 
@@ -87,6 +100,11 @@ _CSRC = _build.CSRC
 class GroupUnsupported(Exception):
     """The plan cannot take this schedule: the group is evaluated
     whole-array instead."""
+
+
+class _SubTileNotMultiple(GroupUnsupported):
+    """A div-indexed window's d does not divide this sub-tile: the planner
+    tries the other sub-tiles."""
 
 
 def _cdiv(a, b):
@@ -144,6 +162,8 @@ class _Footprints:
         self.engine = engine
         self.boxes: Dict[int, Box] = {}
         self.targets: Dict[int, object] = {}
+        # (target id, dim) -> the divisors d of its reads (1: not x / d)
+        self.divs: Dict[Tuple[int, int], set] = {}
 
     def visit(self, e, scope):
         if isinstance(e, E.Call):
@@ -158,11 +178,29 @@ class _Footprints:
                     raise GroupUnsupported(
                         f"unbounded footprint of {getattr(t, 'name', '?')}")
                 box.union_dim(i, iv)
+                self.divs.setdefault((id(t), i), set()).add(
+                    _index_divisor(e.args[i]))
             return
         if isinstance(e, (E.Let, E.Reduce)):
             raise GroupUnsupported(f"{type(e).__name__} in a group")
         for c in e.children():
             self.visit(c, scope)
+
+
+def _index_divisor(a) -> int:
+    """d of an index written (v + c) / d + e with d > 1 a constant, else
+    1."""
+    while isinstance(a, E.Binary) and a.op in ("add", "sub"):
+        if isinstance(a.b, E.IntImm):
+            a = a.a
+        elif a.op == "add" and isinstance(a.a, E.IntImm):
+            a = a.b
+        else:
+            break
+    if isinstance(a, E.Binary) and a.op == "div" and \
+            isinstance(a.b, E.IntImm) and a.b.value > 1:
+        return a.b.value
+    return 1
 
 
 def _match_clamp(a):
@@ -274,8 +312,9 @@ def itemsize(t: Type) -> int:
 
 class _Stage:
     """A buffer in shared memory: an input window (func None) or a member
-    over its footprint. dims[j] = (kind, off, ext): kind 'x'/'y' tracks the
-    sub-tile origin (lo = origin + off), 's' is static (lo = off)."""
+    over its footprint. dims[j] = (kind, d, off, ext): kind 'x'/'y' tracks
+    the sub-tile origin x0/y0 (lo = floor(origin / d) + off; d > 1 only for
+    an input window read at (x + c) / d), 's' is static (lo = off, d = 1)."""
 
     def __init__(self, name, target, type_, dims, value=None):
         self.name = name
@@ -287,7 +326,8 @@ class _Stage:
         self.index = 0
 
     def nbytes(self) -> int:
-        return math.prod(e for _k, _o, e in self.dims) * itemsize(self.type)
+        return math.prod(e for _k, _d, _o, e in self.dims) \
+            * itemsize(self.type)
 
 
 class GroupPlan:
@@ -304,6 +344,10 @@ class GroupPlan:
                 "grid": (self.ntx * self.nsx, self.nty * self.nsy),
                 "smem_bytes": self.smem, "threads": _THREADS,
                 "windows": [w.name for w in self.windows],
+                "div_windows": {w.name: [(k, d) for k, d, _o, _e in w.dims
+                                         if d > 1]
+                                for w in self.windows
+                                if any(d > 1 for _k, d, _o, _e in w.dims)},
                 "members": [m.name for m in self.members]}
 
 
@@ -375,10 +419,18 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
 
     def stages_for(sx, sy):
         """Classify every dim of every member and input footprint of a
-        sub-tile (sx, sy) by how it moves when the sub-tile moves."""
+        sub-tile (sx, sy) by how it moves when the sub-tile moves: not at
+        all (static), by sx or sy (tracks the tile), or, for an input, by
+        sx / d or sy / d (div-indexed: the pyramid upsample's x / 2, d
+        read off the index expression). A div-indexed window is staged
+        with one element of slack, so that it also covers the footprint at
+        origins that are not multiples of d (the shifted-inwards last tile
+        and sub-tile): floor((x0 + c) / d) lies in [floor(x0 / d) +
+        floor(c / d), that + 1]."""
         fp_t = footprints(sub_scope(0, sx, 0, sy))
         fp_x = footprints(sub_scope(sx, sx, 0, sy))
         fp_y = footprints(sub_scope(0, sx, sy, sy)) if ydim else fp_t
+
         stages = []
         for tid, t in fp_g.targets.items():
             name = getattr(t, "name", "?")
@@ -394,24 +446,39 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                 dy = by.dims[j].lo - bt.dims[j].lo if ydim else 0
                 same = (bx.dims[j].extent() == bt.dims[j].extent()
                         and by.dims[j].extent() == bt.dims[j].extent())
+                lo, ext = int(bt.dims[j].lo), int(bt.dims[j].extent())
+                # d of a div-indexed dim: every read of it is (v + c) / d
+                ds = fp_t.divs[(tid, j)]
+                d = next(iter(ds)) if len(ds) == 1 else 1
+                for s, b in ((sx, bx), (sy, by)):
+                    if d > 1 and s % d and (b.dims[j].lo, b.dims[j].hi) != (
+                            bt.dims[j].lo, bt.dims[j].hi):
+                        raise _SubTileNotMultiple(
+                            f"window dim {j} of {name}: d = {d} does not "
+                            f"divide the sub-tile {s}")
                 if dx == 0 and dy == 0 and same:
-                    sdims.append(("s", int(bg.dims[j].lo),
+                    sdims.append(("s", 1, int(bg.dims[j].lo),
                                   int(bg.dims[j].extent())))
                 elif dx == sx and dy == 0 and same:
-                    sdims.append(("x", int(bt.dims[j].lo),
-                                  int(bt.dims[j].extent())))
+                    sdims.append(("x", 1, lo, ext))
                 elif dy == sy and dx == 0 and same and ydim:
-                    sdims.append(("y", int(bt.dims[j].lo),
-                                  int(bt.dims[j].extent())))
-                elif same and ((dx and not dy and sx % dx == 0)
-                               or (dy and not dx and sy % dy == 0)):
-                    raise GroupUnsupported(
-                        f"window dim {j} of {name}: div-indexed (not "
-                        "ported yet)")
+                    sdims.append(("y", 1, lo, ext))
+                elif d > 1 and dx * d == sx and dy == 0 and same:
+                    sdims.append(("x", d, lo, ext))
+                elif d > 1 and dy * d == sy and dx == 0 and same and ydim:
+                    sdims.append(("y", d, lo, ext))
                 else:
                     raise GroupUnsupported(
                         f"window dim {j} of {name}: mixed/partial tile "
                         "dependence")
+                if sdims[-1][1] > 1:
+                    if tid in member_ids:
+                        # the JAX planner derives div symbols for inputs
+                        # only: a member so read is evaluated whole-array
+                        raise GroupUnsupported(
+                            f"member {name}: div-indexed footprint")
+                    k, d, _lo, _ext = sdims[-1]
+                    sdims[-1] = (k, d, lo, ext + 1)
             if tid in member_ids:
                 stages.append(_Stage(t.name, t, t._defs[0].values[0].dtype,
                                      sdims, svals[tid]))
@@ -422,12 +489,17 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                     raise GroupUnsupported(f"multi-value input {name}")
         return stages
 
-    best = None
+    best, failed, classified = None, None, False
     xs = sorted({min(s, tx) for s in _SUB_X})
     ys = sorted({min(s, ty) for s in _SUB_Y}) if ydim else [1]
     for sx in xs:
         for sy in ys:
-            stages = stages_for(sx, sy)
+            try:
+                stages = stages_for(sx, sy)
+            except _SubTileNotMultiple as ex:
+                failed = failed or ex
+                continue
+            classified = True
             nbytes = sum(_cdiv(s.nbytes(), 16) * 16 for s in stages)
             if nbytes > _SMEM_LIMIT:
                 continue
@@ -436,11 +508,14 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                    -sx * sy)
             if best is None or key < best[0]:
                 best = (key, sx, sy, stages, nbytes)
+    if not classified:
+        raise failed
     if best is None:
         raise GroupUnsupported(
             f"shared-memory budget: no sub-tile of {tx}x{ty} fits "
             f"{_SMEM_LIMIT} bytes")
     _key, sx, sy, stages, nbytes = best
+    _check_div_cover(stages, footprints, sub_scope, sx, sy)
     windows = [s for s in stages if s.value is None]
     by_id = {id(s.target): s for s in stages}
     ordered = windows + [by_id[id(m)] for m in members if id(m) in by_id]
@@ -462,6 +537,36 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
         windows=windows, members=ordered[len(windows):], smem=off)
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
+
+
+def _check_div_cover(stages, footprints, sub_scope, sx, sy):
+    """The staged div-indexed windows hold the footprint of a sub-tile at
+    every origin phase, not only at the multiples of d they were classified
+    at: checked at each phase (x0 mod d, y0 mod d). d is read off the
+    index, so this fails only where its numerator does not move one for one
+    with the origin (a member's box that grows, a clamp), and the plan is
+    rejected."""
+    per = {"x": 1, "y": 1}
+    for s in stages:
+        for k, d, _o, _e in s.dims:
+            if d > 1:
+                per[k] = per[k] * d // math.gcd(per[k], d)
+    if per == {"x": 1, "y": 1}:
+        return
+    for rx in range(per["x"]):
+        for ry in range(per["y"]):
+            if rx == ry == 0:
+                continue
+            fp = footprints(sub_scope(rx, sx, ry, sy))
+            for s in stages:
+                box = fp.boxes[id(s.target)]
+                for j, ((lo, ext), iv) in enumerate(zip(
+                        _stage_box(s, rx, ry), box.dims)):
+                    if iv.lo < lo or iv.hi > lo + ext - 1:
+                        raise GroupUnsupported(
+                            f"window dim {j} of {s.name}: footprint at "
+                            f"origin phase ({rx}, {ry}) leaves the staged "
+                            "window")
 
 
 def try_group(f: Func, box: Box, ctx0: Ctx, graph,
@@ -543,8 +648,10 @@ def _origins(plan: GroupPlan):
 
 
 def _stage_box(s: _Stage, x0: int, y0: int):
-    return [(off + (x0 if k == "x" else y0 if k == "y" else 0), ext)
-            for k, off, ext in s.dims]
+    """[(lo, ext)] of a stage for the sub-tile at (x0, y0), as the kernel
+    computes it (floor division for a div-indexed dim)."""
+    return [(off + (x0 // d if k == "x" else y0 // d if k == "y" else 0),
+             ext) for k, d, off, ext in s.dims]
 
 
 def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
@@ -720,6 +827,8 @@ class _PointEmitter:
         if n == "bitnot":
             return self.let(e.dtype, f"({ctype(e.dtype)})(~"
                                      f"{self.val(e.args[0])})")
+        if n == "lerp":
+            return self._lerp(e)
         if n == "param":
             v = self.ctx0.params[id(e.args[0])]
             if e.dtype.is_float():
@@ -734,6 +843,35 @@ class _PointEmitter:
             return _int_lit(int(v), e.dtype)
         raise GroupUnsupported(f"intrinsic {n} in a kernel")
 
+    def _lerp(self, e: E.Intrin) -> str:
+        """eval_torch's lerp, operation for operation: zero * (1 - w) +
+        one * w (the build's -fmad=false keeps the products unfused), a
+        uint weight over 2^bits - 1, a bool weight selecting, an integer
+        result computed in f32 and rounded half to even (rint)."""
+        zero, one, w = (self.val(a) for a in e.args)
+        t, wt = e.dtype, e.args[2].dtype
+        if wt.is_bool():
+            return self.let(t, f"{w} ? {one} : {zero}")
+        if wt.is_uint():
+            f32 = Type("float", 32)
+            w = self.let(f32, f"(float){w} / "
+                              f"{_float_lit(float((1 << wt.bits) - 1), f32)}")
+            wt = f32
+        if not wt.is_float() or wt.bits not in (32, 64) or (
+                t.is_float() and t.bits not in (32, 64)):
+            raise GroupUnsupported(f"lerp of {t} by a {wt} weight")
+        wide = 64 in (wt.bits, t.bits if t.is_float() else 32)
+        ft = Type("float", 64 if wide else 32)
+        cf = ctype(ft)
+        w = self.let(ft, f"({cf}){w}")
+        w1 = self.let(ft, f"hl_sub<{cf}>({_float_lit(1.0, ft)}, {w})")
+        r = self.let(ft, f"hl_add<{cf}>(hl_mul<{cf}>(({cf}){zero}, {w1}), "
+                         f"hl_mul<{cf}>(({cf}){one}, {w}))")
+        if t.is_float():
+            return self.let(t, f"({ctype(t)}){r}")
+        rint = "rint" if wide else "rintf"
+        return self.let(t, f"hl_cast<{ctype(t)}>({rint}({r}))")
+
     def _read(self, e: E.Call) -> str:
         s = self.stages.get(id(e.target))
         if s is None or e.value_index != 0:
@@ -743,7 +881,7 @@ class _PointEmitter:
         for j, a in enumerate(e.args):
             av = self.val(a)
             idx.append(f"({av} - t.{_field(s)}_lo[{j}]) * {stride}")
-            stride *= s.dims[j][2]
+            stride *= s.dims[j][3]
         return self.let(s.type, f"t.{_field(s)}[{' + '.join(idx)}]")
 
 
@@ -837,14 +975,17 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     for s in stages:
         cn = _field(s)
         L.append(f"  t.{cn} = (const {ctype(s.type)}*)(smem + {s.smem_off});")
-        for j, (k, off, _e) in enumerate(s.dims):
-            base = {"x": "x0 + ", "y": "y0 + ", "s": ""}[k]
+        for j, (k, d, off, _e) in enumerate(s.dims):
+            origin = {"x": "x0", "y": "y0", "s": ""}[k]
+            if origin and d > 1:       # floor division, never C's `/`
+                origin = f"hl_div<int>({origin}, {d})"
+            base = f"{origin} + " if origin else ""
             L.append(f"  t.{cn}_lo[{j}] = {base}{off};")
     L.append("  switch (ph) {")
     L.append("  case 0: {")
     for k, w in enumerate(plan.windows):
         cn = _field(w)
-        ext = ", ".join(str(e) for _k, _o, e in w.dims)
+        ext = ", ".join(str(e) for _k, _d, _o, e in w.dims)
         L.append(f"    const int ext{k}[{len(w.dims)}] = {{{ext}}};")
         L.append(f"    hl_stage_window<{ctype(w.type)}, {len(w.dims)}>("
                  f"({ctype(w.type)}*)t.{cn}, p.in{k}, t.{cn}_lo, ext{k}, "
@@ -856,7 +997,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         body = [f"      (({ctype(m.type)}*)t.{cn})[i] = point_{cn}(t, "
                 + ", ".join(f"t.{cn}_lo[{d}] + c{d}"
                             for d in range(len(m.dims))) + ");"]
-        walk_box(L, [e for _k, _o, e in m.dims], body)
+        walk_box(L, [e for _k, _d, _o, e in m.dims], body)
         L += ["    break;", "  }"]
     L.append(f"  case {len(plan.members) + 1}: {{")
     ext, lo = [], []

@@ -983,7 +983,13 @@ def _dense_small_scatter(cur, op, garr, np_idx, t, vtype, identity, inner,
 
 
 def _scatter_into(cur: torch.Tensor, op: str, idx, vals: torch.Tensor, t):
-    """cur[idx] (op)= vals in place, index tuples outside cur dropped."""
+    """cur[idx] (op)= vals in place, index tuples outside cur dropped with
+    nothing read back to the host (a boolean mask would be): a dropped
+    combine writes the op's no-op value into element 0; a dropped set,
+    which has no such value, goes to a scratch slot past the end of a flat
+    copy of cur."""
+    if cur.numel() == 0:
+        return
     valid = None
     flat = None
     for k, ix in enumerate(idx):
@@ -991,20 +997,43 @@ def _scatter_into(cur: torch.Tensor, op: str, idx, vals: torch.Tensor, t):
         ok = (ix >= 0) & (ix < cur.shape[k])
         valid = ok if valid is None else valid & ok
         flat = ix if flat is None else flat * cur.shape[k] + ix
-    flat = flat[valid]
-    v = vals.expand(valid.shape)[valid]
-    view = cur.view(-1)
+    v = vals.expand(valid.shape).reshape(-1)
+    valid, flat = valid.reshape(-1), flat.reshape(-1)
     if op == "set":
-        view[flat] = v
-    elif op == "add":
-        view.index_put_((flat,), v, accumulate=True)
-    elif op == "sub":
-        view.index_put_((flat,), torch.zeros_like(v) - v, accumulate=True)
+        n = cur.numel()
+        buf = torch.empty(n + 1, dtype=cur.dtype, device=cur.device)
+        buf[:n] = cur.view(-1)
+        buf[torch.where(valid, flat, n)] = v
+        cur.view(-1).copy_(buf[:n])
     else:
-        view.scatter_reduce_(0, flat, v, {"mul": "prod", "min": "amin",
-                                          "max": "amax"}[op])
+        flat = torch.where(valid, flat, 0)
+        if op == "sub":
+            v = torch.zeros_like(v) - v
+        v = torch.where(valid, v, _noop_value(op, v))
+        if op in ("add", "sub"):
+            cur.view(-1).index_put_((flat,), v, accumulate=True)
+        else:
+            cur.view(-1).scatter_reduce_(
+                0, flat, v, {"mul": "prod", "min": "amin", "max": "amax"}[op])
     if t.is_uint() and t.bits in (16, 32):
         cur.copy_(_wrap(cur, t))
+
+
+def _noop_value(op: str, like: torch.Tensor) -> torch.Tensor:
+    """The value whose combine by `op` leaves every element of like's dtype
+    as it is, -0.0 and NaN included (x + -0.0 == x; min with +inf)."""
+    dt = like.dtype
+    if dt == torch.bool:
+        v = {"add": False, "sub": False, "mul": True, "min": True,
+             "max": False}[op]
+    elif dt.is_floating_point:
+        v = {"add": -0.0, "sub": -0.0, "mul": 1.0, "min": math.inf,
+             "max": -math.inf}[op]
+    else:
+        info = torch.iinfo(dt)
+        v = {"add": 0, "sub": 0, "mul": 1, "min": info.max,
+             "max": info.min}[op]
+    return torch.full((), v, dtype=dt, device=like.device)
 
 
 def _general_scatter(func, d, current, base_ctx, inner, rdom_axes, ops,
@@ -1159,11 +1188,14 @@ def _sequential_update(func, d, current, base_ctx: Ctx, rdom_axes):
         isinstance(a, E.Variable) and a.name == init_args[i].name
         for i, a in enumerate(d.args)]
     shape = current[0].shape
+    dev = current[0].device
     # a value evaluated in the loop has 1s at the data-dependent dims
     vshape = [shape[a] if identity_dims[nd - 1 - a] else 1
               for a in range(nd)]
-    vsel = tuple(slice(None) if identity_dims[nd - 1 - a] else 0
-                 for a in range(nd))
+    # the identity dims' index tensors, shaped to broadcast into vshape
+    spans = {a: torch.arange(shape[a], device=dev).reshape(
+        [shape[a] if b == a else 1 for b in range(nd)])
+        for a in range(nd) if identity_dims[nd - 1 - a]}
 
     cur = list(current)
     for k in range(total):
@@ -1179,30 +1211,30 @@ def _sequential_update(func, d, current, base_ctx: Ctx, rdom_axes):
         for p in d.predicates:
             pv = eval_array(p, ctx2)
             pred = pv if pred is None else torch.logical_and(pred, pv)
+        # the data-dependent positions stay on the card: an out-of-bounds
+        # write is clamped into range and writes back the old value
         idx = []
-        dropped = False
+        keep = pred.expand(vshape) if pred is not None else None
         for j in reversed(range(nd)):
+            a = nd - 1 - j
             if identity_dims[j]:
-                idx.append(slice(None))
+                idx.append(spans[a])
                 continue
             v = materialize(evaluate(d.args[j], ctx2), ctx2)
-            pos = int(v.reshape(())) - box_mins[j]
-            if not 0 <= pos < shape[nd - 1 - j]:
-                dropped = True        # an out-of-bounds write drops
-            idx.append(pos)
-        if dropped:
-            continue
+            pos = v.reshape(()).to(torch.int64) - box_mins[j]
+            ok = (pos >= 0) & (pos < shape[a])
+            keep = ok if keep is None else keep & ok
+            idx.append(pos.clamp(0, shape[a] - 1).reshape([1] * nd))
         ti = tuple(idx)
         news = []
         for i, v in enumerate(d.values):
             if _is_undef(v):
                 continue
             old = cur[i][ti]
-            val = kastype(eval_array(v, ctx2), _ftype(func, i))
-            val = val.expand(vshape)[vsel]
-            if pred is not None:
-                val = torch.where(pred.expand(vshape)[vsel], val, old)
+            val = kastype(eval_array(v, ctx2), _ftype(func, i)).expand(vshape)
+            if keep is not None:
+                val = torch.where(keep, val, old)
             news.append((i, _unaliased(val, cur[i])))
         for i, val in news:
-            cur[i][ti] = val
+            cur[i].index_put_(ti, val.to(cur[i].dtype))
     return cur

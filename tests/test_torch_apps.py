@@ -4,7 +4,9 @@ comparison rules: bit for bit where the app's tolerance is 0 (blur, u16),
 else within the app's rtol/atol (linear_blur: 1e-4, which covers the two
 libms' pow and XLA's fused multiply-adds; iir_blur: 2e-3; hist: atol 2, for
 the float Y that may fall into a neighbouring bin where it lies within an
-ulp of an integer)."""
+ulp of an integer; interpolate: 2e-3; local_laplacian: u16 within 2 steps
+on all but 0.3% of the pixels, the rule of tests/test_apps.py for its
+int-cast boundaries)."""
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,12 @@ def _compare(app, got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
     if app.tolerance == 0.0 and app.atol == 0.0:
         np.testing.assert_array_equal(got, want)
+    elif app.mismatch_frac > 0:
+        gf, wf = got.astype(np.float64), want.astype(np.float64)
+        bad = np.abs(gf - wf) > app.atol + app.tolerance * np.abs(wf)
+        assert bad.mean() <= app.mismatch_frac, (
+            f"{bad.mean():.4%} of pixels mismatch "
+            f"(> {app.mismatch_frac:.4%})")
     else:
         np.testing.assert_allclose(got.astype(np.float64),
                                    want.astype(np.float64),
@@ -114,3 +122,99 @@ def test_hist_through_the_row_histogram_route(monkeypatch):
     assert calls == [((300, 640), 256, 1.0)]
     _compare(app, got, want)
     _compare(app, got, app.reference(**data))
+
+
+@pytest.fixture
+def one_torch_thread():
+    """local_laplacian runs on one torch thread on the CPU. Its remap
+    takes torch.exp of a whole 8-plane pyramid level, and torch's CPU exp
+    (torch 2.13.0+cpu, with MKL), on its first call in a process, can
+    return values off by ~1e-4 on one or two worker threads' shares of the
+    elements with 8 threads, never with one; the same call again is right.
+    `tools/cpu_exp_witness.py` shows this with torch.exp alone. It moves
+    the u16 output past the app's mismatch rule now and then. The card's
+    expf is not involved."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _kernel_branch(name, monkeypatch, jax_env, tile, **kw):
+    """The port's tiled branch (the plan taken, no reject) against the
+    JAX app and the golden, under the app's own rule."""
+    rejects = sum(gk.rejects.values())
+    gk.last_plan = None
+    app, data, got, want = _run_both(name, monkeypatch, jax_env, tile=tile,
+                                     **kw)
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    assert gk.last_plan is not None
+    assert gk.last_plan["func"] == app.pipeline.outputs[0].name
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+    return gk.last_plan
+
+
+@pytest.mark.parametrize("w,h,levels,tile", [
+    (96, 64, 5, (32, 16)), (512, 128, 6, (256, 64)), (512, 128, 6, (32, 16))])
+def test_interpolate_kernel_branch(w, h, levels, tile, monkeypatch):
+    plan = _kernel_branch("interpolate", monkeypatch,
+                          {"HALIDE_TPU_IP_KERNEL": "1"}, tile, width=w,
+                          height=h, levels=levels)
+    assert plan["members"] == ["interp_0"]
+    assert plan["div_windows"] == {"interp_1": [("x", 2), ("y", 2)]}
+
+
+@pytest.mark.parametrize("w,h,levels,tile", [
+    (96, 64, 4, (32, 16)), (512, 128, 5, (256, 64)), (512, 128, 5, (32, 16))])
+def test_local_laplacian_kernel_branch(w, h, levels, tile, monkeypatch,
+                                       one_torch_thread):
+    plan = _kernel_branch("local_laplacian", monkeypatch,
+                          {"HALIDE_TPU_LL_KERNEL": "1"}, tile, width=w,
+                          height=h, pyramid_levels=levels)
+    assert plan["members"] == ["lPyramid_0", "outGPyramid_0"]
+    assert plan["div_windows"] == {"outGPyramid_1": [("x", 2), ("y", 2)],
+                                   "gPyramid_1": [("x", 2), ("y", 2)]}
+
+
+def test_local_laplacian_level_select_reads_a_static_plane_range(
+        monkeypatch, one_torch_thread):
+    """lPyramid[0] is read at the data-dependent plane li and li + 1, li
+    clamped to [0, levels - 2]: the member is staged over all `levels`
+    planes, a static dim."""
+    tapp = torch_get("local_laplacian")(width=96, height=64,
+                                        pyramid_levels=4, levels=6,
+                                        tile=(32, 16))
+    tapp.bind(tapp.make_inputs(0), "cpu")
+    got = tapp.realize("cpu").to_numpy()
+    plan = gk.group_call(tapp.pipeline, "cpu")[0]
+    lp = next(m for m in plan.members if m.name == "lPyramid_0")
+    assert lp.dims[2] == ("s", 1, 0, 6)
+    _compare(tapp, got, tapp.reference(**tapp.make_inputs(0)))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("interpolate", dict(width=96, height=64, levels=5)),
+    ("local_laplacian", dict(width=96, height=64, pyramid_levels=4)),
+])
+def test_pyramid_apps_root_branch(name, kw, monkeypatch, one_torch_thread):
+    """tile=None: the full-resolution level computed at root, whole-array
+    (the div-indexed reads of the half-resolution level as slices)."""
+    gk.last_plan = None
+    app, data, got, want = _run_both(name, monkeypatch, tile=None, **kw)
+    assert gk.last_plan is None
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def test_pyramid_apps_default_tile():
+    """Full widths by default, and the canonical 256x64 tile where the
+    sizes divide; else the root branch."""
+    from halide_tpu_torch.apps import interpolate, local_laplacian
+    for mod in (interpolate, local_laplacian):
+        app = mod.build()
+        assert app.output_sizes == [1536, 2560, 3]
+        tiled = mod.build(width=512, height=128).pipeline.outputs[0]
+        assert gk.find_tile(tiled) == ("x", 256, "y", 64)
+        root = mod.build(width=96, height=64).pipeline.outputs[0]
+        assert gk.find_tile(root) is None

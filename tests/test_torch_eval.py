@@ -1,10 +1,11 @@
 """eval_torch (the port's whole-array evaluator) against eval_jnp (the JAX
 package's), through each package's Pipeline.realize on the CPU with no
 tiling: the same pipeline built in both packages, the same numpy inputs made
-from a seed. Integer cases compare bit for bit. Three float cases allow an
+from a seed. Integer cases compare bit for bit. Five float cases allow an
 ulp (rtol 1e-6): pow and the other libm functions (the two libms differ by an
-ulp or two) and float mod, whose a - b*floor(a/b) XLA's CPU backend may
-contract into a fused multiply-add."""
+ulp or two) and float mod and the f32 lerps, whose a - b*floor(a/b) and
+zero*(1-w) + one*w XLA's CPU backend may contract into fused multiply-adds.
+The lerps with an integer result or a bool weight compare bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -77,6 +78,35 @@ def _div_index(m, a, b, x, y):
     return a[x / 2, (y + 1) / 3] + a[(x + 3) / 4, y]
 
 
+def _div_reads(m, a, b, x, y):
+    """Div-indexed reads of a root Func realized over the footprint they
+    need: the slice path (a narrow, a d-fold repeat, a narrow to the
+    phase), including (x - 1) / 2 below the image's origin."""
+    g = m.Func("g")
+    g[x, y] = m.repeat_edge(a)[x, y] * 3 + m.repeat_edge(b)[x, y] % 5
+    g.compute_root()
+    return (g[x / 2, y] + g[(x + 1) / 2, y] * 2 - g[(x - 1) / 2, y]
+            + g[x, y / 8] * 5 - g[(x + 7) / 8, y] + g[(x - 1) / 2, y / 8])
+
+
+def _lerp_f32(m, a, b, x, y):
+    return m.lerp(a[x, y], b[x, y], a[x, y] * b[x, y])
+
+
+def _lerp_u8_weight(m, a, b, x, y):
+    return m.lerp(a[x, y] * 2.0, b[x, y] - 1.0,
+                  m.cast(m.UInt(8), b[x, y] * 255.0))
+
+
+def _lerp_bool_weight(m, a, b, x, y):
+    return m.lerp(a[x, y], b[x, y], a[x, y] > b[x, y])
+
+
+def _lerp_u16(m, a, b, x, y):
+    # an integer result: computed in f32, rounded half to even
+    return m.lerp(a[x, y], b[x, y], m.cast(m.Float(32), a[x, y] % 9) / 8.0)
+
+
 def _math(m, a, b, x, y):
     v = m.abs(a[x, y])
     return (m.sqrt(v) + m.exp(-v) + m.floor(a[x, y]) + m.round(a[x, y] * 2)
@@ -95,6 +125,12 @@ CASES = {
     "clamped_strided": (_clamped_strided, "int32", -1000, 1000, 0),
     "gather": (_gather, "uint16", 0, 1000, 0),
     "div_index": (_div_index, "int32", -1000, 1000, 0),
+    "div_reads": (_div_reads, "int32", -1000, 1000, 0),
+    "div_reads_u16": (_div_reads, "uint16", 0, 1 << 14, 0),
+    "lerp_f32": (_lerp_f32, "float32", 0.0, 1.0, 1e-6),
+    "lerp_u8_weight": (_lerp_u8_weight, "float32", 0.0, 1.0, 1e-6),
+    "lerp_bool_weight": (_lerp_bool_weight, "int32", -300, 300, 0),
+    "lerp_u16": (_lerp_u16, "uint16", 0, 1 << 16, 0),
     "math": (_math, "float32", -4.0, 4.0, 1e-6),
 }
 
@@ -153,3 +189,20 @@ def test_realize_without_a_card_raises():
     np.testing.assert_array_equal(
         ht.Pipeline(f).realize([8], device="cpu").to_numpy(),
         np.arange(8, dtype=np.int32) * 2)
+
+
+@pytest.mark.parametrize("dtype,lo,hi", [("int32", -1000, 1000),
+                                         ("uint16", 0, 1 << 14)])
+def test_div_reads_take_the_slice_path(dtype, lo, hi, monkeypatch):
+    """Div-indexed reads on a single var are slices plus a repeat, not the
+    gather over the whole realization; the values equal eval_jnp's."""
+    from halide_tpu_torch import eval_torch as et
+
+    def no_gather(*_a, **_k):
+        raise AssertionError("div-indexed read went through the gather")
+
+    a, b = _inputs(3, dtype, lo, hi)
+    ref = _realize(hl, _div_reads, dtype, a, b)
+    monkeypatch.setattr(et, "_gather_read", no_gather)
+    got = _realize(ht, _div_reads, dtype, a, b)
+    np.testing.assert_array_equal(got, ref)

@@ -8,6 +8,7 @@ the scans go through the scan kernel's plain version on the port and through
 the JAX package's Pallas scan (interpret mode) or XLA's rounds, which round
 in another order. Every case is also held against its own numpy result, as
 in tests/test_reductions.py."""
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -579,3 +580,164 @@ def test_the_port_imports_neither_jax_nor_the_jax_package():
                        text=True, timeout=300,
                        cwd=Path(__file__).resolve().parents[1])
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ---------------------------------------------------------------------------
+# the scatter and the sequential loop keep their indices on the card: no
+# boolean mask, no read-back of an index (held against what they gave
+# before, and against numpy)
+# ---------------------------------------------------------------------------
+
+def _scatter_masked(cur, op, idx, vals, t):
+    """The scatter as it was: out-of-bounds index tuples dropped with a
+    boolean mask (a read-back on the card)."""
+    from halide_tpu_torch.eval_torch import _wrap
+    valid = flat = None
+    for k, ix in enumerate(idx):
+        ix = ix.to(torch.int64)
+        ok = (ix >= 0) & (ix < cur.shape[k])
+        valid = ok if valid is None else valid & ok
+        flat = ix if flat is None else flat * cur.shape[k] + ix
+    flat = flat[valid]
+    v = vals.expand(valid.shape)[valid]
+    view = cur.view(-1)
+    if op == "set":
+        view[flat] = v
+    elif op == "add":
+        view.index_put_((flat,), v, accumulate=True)
+    elif op == "sub":
+        view.index_put_((flat,), torch.zeros_like(v) - v, accumulate=True)
+    else:
+        view.scatter_reduce_(0, flat, v, {"mul": "prod", "min": "amin",
+                                          "max": "amax"}[op])
+    if t.is_uint() and t.bits in (16, 32):
+        cur.copy_(_wrap(cur, t))
+
+
+@pytest.mark.parametrize("op", ["set", "add", "sub", "mul", "min", "max"])
+@pytest.mark.parametrize("dtype", ["int32", "uint16", "float32"])
+def test_scatter_drops_out_of_bounds_writes_as_before(op, dtype):
+    from halide_tpu_torch import updates
+    from halide_tpu_torch.htypes import compute_dtype
+    t = {"int32": thl.Int(32), "uint16": thl.UInt(16),
+         "float32": thl.Float(32)}[dtype]
+    rng = np.random.default_rng(8)
+    shape = (6, 9)                       # tensor axes: dim 1, dim 0
+    cur0 = torch.from_numpy(rng.integers(0, 50, shape)).to(compute_dtype(t))
+    if op == "set":                      # distinct targets: no write order
+        cells = rng.permutation(8 * 11)[:40]
+        i0, i1 = cells % 11 - 1, cells // 11 - 1
+    else:
+        i0 = rng.integers(-2, 11, (5, 8))
+        i1 = rng.integers(-1, 8, (5, 8))
+    idx = (torch.from_numpy(i1), torch.from_numpy(i0))
+    vals = torch.from_numpy(rng.integers(1, 4, idx[0].shape)).to(
+        compute_dtype(t))
+    got, want = cur0.clone(), cur0.clone()
+    updates._scatter_into(got, op, idx, vals, t)
+    _scatter_masked(want, op, idx, vals, t)
+    assert not torch.equal(want, cur0)   # some writes were in bounds
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "min", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_scatter_dropped_combines_leave_element_zero_as_it_was(op, dtype):
+    """A dropped combine writes the op's no-op value into element 0: what
+    is there (-0.0, NaN, the type's extremes) stays bit for bit, as under
+    the masked scatter."""
+    from halide_tpu_torch import updates
+    t = thl.Float(32) if dtype == torch.float32 else thl.Int(32)
+    if dtype == torch.float32:
+        firsts = [-0.0, math.nan, math.inf, -math.inf, 0.0]
+    else:
+        firsts = [torch.iinfo(dtype).max, torch.iinfo(dtype).min, 0, -1]
+    for first in firsts:
+        cur0 = torch.tensor([[first, 3, 4], [5, 6, 7]], dtype=dtype)
+        # every write out of bounds but the one at (1, 2)
+        idx = (torch.tensor([-1, 2, 0, 1, 0]), torch.tensor([0, 1, 3, 2, -4]))
+        vals = torch.full((5,), 2 if op == "min" else 9, dtype=dtype)
+        got, want = cur0.clone(), cur0.clone()
+        updates._scatter_into(got, op, idx, vals, t)
+        _scatter_masked(want, op, idx, vals, t)
+        assert not torch.equal(want[1:], cur0[1:])
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _sequential_dropping(hl):
+    """A 2-D data-dependent update under a predicate, with targets outside
+    the Func (dropped): the sequential loop."""
+    x, y = hl.Var("x"), hl.Var("y")
+    data = np.random.default_rng(9).integers(-2, 7, 40).astype(np.int32)
+    inp = hl.Buffer(data)
+    r = hl.RDom(0, 40)
+    r.where(r.x % 3 != 1)
+    f = hl.Func("seq_drop")
+    f[x, y] = x + 10 * y
+    f[x, hl.clamp(inp[r.x], -2, 6)] = \
+        f[x, hl.clamp(inp[r.x] + 1, 0, 4)] * 2 + r.x - x
+    ref = (np.arange(3)[None, :] + 10 * np.arange(5)[:, None]).astype(
+        np.int64)
+    for rr in range(40):
+        e = data[rr]
+        if rr % 3 == 1 or not 0 <= e < 5:
+            continue
+        ref[e] = ref[np.clip(e + 1, 0, 4)] * 2 + rr - np.arange(3)
+    return f, [3, 5], ref.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["sequential_dropping", "long_rdom"])
+def test_sequential_update_keeps_indices_on_the_device(case, monkeypatch):
+    """The loop reads no index back (an out-of-bounds write is clamped into
+    range and writes the old value back); same values as numpy."""
+    from halide_tpu_torch import updates
+    build = {"sequential_dropping": _sequential_dropping,
+             "long_rdom": _sequential_long_rdom}[case]
+    calls = []
+    orig = updates._sequential_update
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(updates, "_sequential_update", spy)
+    monkeypatch.setattr(torch.Tensor, "__int__", lambda self: pytest.fail(
+        "an index was read back to the host"))
+    f, sizes, golden = build(thl)
+    got = f.realize(sizes, device="cpu").to_numpy()
+    assert calls
+    np.testing.assert_array_equal(got, golden)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["general_scatter_add",
+                                  "scatter_set_permutation",
+                                  "sequential_dropping",
+                                  "sequential_fallback_general_update"])
+def test_scatter_and_sequential_loop_do_not_sync(case, monkeypatch):
+    """On the card, the scatter and the sequential loop run under
+    torch.cuda.set_sync_debug_mode("error"): any read-back raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from halide_tpu_torch import updates
+    entered = []
+
+    def no_sync(name):
+        orig = getattr(updates, name)
+
+        def run(*a, **k):
+            entered.append(name)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return orig(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.setattr(updates, name, run)
+
+    no_sync("_scatter_into")
+    no_sync("_sequential_update")
+    build = dict(CASES, sequential_dropping=_sequential_dropping)[case]
+    f, sizes, golden = build(thl)
+    got = f.realize(sizes).to_numpy()
+    assert entered
+    np.testing.assert_array_equal(got, golden)
