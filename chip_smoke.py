@@ -2,16 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the port's fixed kernel sources (the scan kernel K2 and the row-
-histogram kernel K3) with nvcc, in parallel, then drives the port's main
-paths through `App.bind` / `Pipeline.realize` on the card:
+First it plans every stencil group of the apps below (one realize each, with
+the group kernel's launch replaced by a stand-in that only keeps the plan),
+and builds every kernel source with nvcc, all started together: each
+group's emitted source, the scan kernel K2 and the row-histogram kernel K3.
+Then it drives the port's main paths through `App.bind` /
+`Pipeline.realize` on the card:
 
 - blur (the README quick-start schedule, 2560x1536 u16) and linear_blur
-  (1536x2560x3 f32) through the stencil-group kernel K1;
+  (1536x2560x3 f32) through the stencil-group kernel K1; linear_blur's
+  full-width row bands make its launch a band walk (planned to walk one
+  sub-tile a block; the same build is also timed walking two sub-tiles a
+  block and with the walk off);
 - interpolate (1536x2560x4 f32, 10 levels) and local_laplacian
   (1536x2560x3 u16, 8 pyramid levels, 8 intensity levels) through K1 with
   div-indexed windows (the half-resolution level read at x / 2), tile
   256x64;
+- stencil_chain (1536x2560 u16, 32 stencils, the kernel branch): four K1
+  launches, one per group of 8 stencils; the last is a band walk, the
+  others span two tiles across;
+- camera_pipe (2560x1920 u8 out, the kernel branch) at the full-width tile
+  2560x128 (a band walk) and at the tile 256x64;
+- a 1536x2560 f32 tile reading a producer at (x / 8, y / 8): K1's d = 8
+  window, the counterpart of the JAX package's 8-fold repeat;
 - iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a;
 - hist (1536x2560x3 u8): one row histogram, K3;
 - a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
@@ -19,11 +32,15 @@ paths through `App.bind` / `Pipeline.realize` on the card:
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan).
 Each kernel is called again on the arguments the main path gave it and held
-against its plain PyTorch version, and each output against its golden. Then
-it times, with CUDA events, each kernel (its device time), its plain version,
-the whole realize (what a caller waits for) and, where one PyTorch call
-computes the same function, that call; and breaks one realize of each app
-down by device time with the profiler.
+against its plain PyTorch version (for stencil_chain and camera_pipe on the
+output rows of the first two and the last two bands of each launch, where
+the plain version's Python loop over every sub-tile would take minutes),
+and each output against its golden. Then it times, with CUDA events, each
+kernel (its device time; K1 on linear_blur also with the same build walking
+two sub-tiles a block and with its band walk turned off), its plain
+version, the whole realize (what a caller waits for) and, where one PyTorch
+call computes the same function, that call; and breaks one realize of each
+app down by device time with the profiler.
 
 Every phase prints one flushed line with its elapsed seconds. A watchdog
 ends the script with exit code 1 after 600 s, naming the phase it was in.
@@ -32,6 +49,7 @@ where the package is not beside it. The last line of its output is
 {"ok": true, "device": {...}}; the line before it is the kernel table, and
 the line before that the card's name and power limit.
 """
+import copy
 import json
 import math
 import signal
@@ -48,7 +66,12 @@ T0 = time.time()
 PHASE = ["start"]
 DEADLINE_S = 600
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
-F32_OPS_PER_S = 67e12         # H100 SXM outside the tensor cores
+# f32 operations outside the tensor cores: the data sheet's 67 TFLOP/s
+# counts an FMA as two, and the port's kernels are built with -fmad=false,
+# so every f32 add and mul issues alone: 128 lanes per SM, 132 SMs
+F32_OPS_PER_S = 67e12 / 2
+# 32-bit integer operations: 64 INT32 lanes per SM, half the f32 lanes
+INT_OPS_PER_S = F32_OPS_PER_S / 2
 
 
 class Deadline(Exception):
@@ -107,28 +130,59 @@ def event_ms(fn, iters, flush=None, hold=False):
 
 
 def count_ops(plan):
-    """Operations the group's point expressions do: the output's at each of
-    its points, each member's at each output (x, y) point times its static
-    dims (local_laplacian's 8 planes), without the halo the kernel
-    recomputes."""
+    """(f32, integer) operations the group's point expressions do on their
+    data: the output's at each of its points, each member's at each output
+    (x, y) point times its static dims (local_laplacian's 8 planes),
+    without the halo the kernel recomputes. The coordinate arithmetic of a
+    read's indices is not counted unless the index depends on data; an
+    operation is counted by its operands' type (a float comparison is an
+    f32 operation)."""
     from halide_tpu_torch import expr as E
     from halide_tpu_torch.visitors import walk
+    free = {"param", "buffer_min", "buffer_extent", "likely", "strict_float"}
+
+    def reads_data(e):
+        hit = [False]
+
+        def fn(c):
+            hit[0] = hit[0] or isinstance(c, E.Call)
+        walk(e, fn)
+        return hit[0]
 
     def ops(v):
-        n = [0]
+        n, seen = [0, 0], set()
 
-        def fn(e):
-            if isinstance(e, (E.Binary, E.Select, E.Intrin, E.Not)):
-                n[0] += 1
-        walk(v, fn)
-        return n[0]
+        def visit(e):
+            if id(e) in seen:
+                return
+            seen.add(id(e))
+            if isinstance(e, E.Call):
+                for a in e.args:
+                    if reads_data(a):
+                        visit(a)
+                return
+            t = None
+            if isinstance(e, E.Binary):
+                t = e.a.dtype
+            elif isinstance(e, E.Select):
+                t = e.true_value.dtype
+            elif isinstance(e, E.Intrin) and e.name not in free:
+                t = e.args[0].dtype if e.args else e.dtype
+            elif isinstance(e, E.Not):
+                t = e.dtype
+            if t is not None:
+                n[0 if t.is_float() else 1] += 1
+            for c in e.children():
+                visit(c)
+        visit(v)
+        return np.array(n, np.int64)
     per_xy = plan.extents[plan.xi] * (
         plan.extents[plan.yi] if plan.yi is not None else 1)
     total = ops(plan.value) * int(np.prod(plan.extents))
     for m in plan.members:
         total += ops(m.value) * per_xy * int(np.prod(
             [e for k, _d, _o, e in m.dims if k == "s"]))
-    return total
+    return int(total[0]), int(total[1])
 
 
 def window_bytes(plan, inputs, rmins):
@@ -263,63 +317,153 @@ def predicated_scan(width, height, seed=0):
     return hl.Pipeline(g), w
 
 
-def run_app(app, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf):
-    """One app on the main path: bind, realize on the card with the counts
-    at 0 (exactly one K1 launch and no rejected plan), then hold the kernel
-    against its plain version (|k - p| <= tol + rtol |p| on all but a share
-    `frac` of the points, and |k - p| <= `cap` on every point) and the
-    output against the golden (the app's own rule). -> the group's call,
-    its launches, the kernel's max abs error against its plain version and
-    the plain version's ms (one call)."""
+def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
+            walks=(False,), bands=None, golden=None):
+    """One app on the main path: realize on the card with the counts at 0
+    (one K1 launch per group, `len(walks)`, each a band walk where `walks`
+    says so, and no rejected plan), then hold each group's kernel against
+    its plain version on the same arguments (|k - p| <= tol + rtol |p| on
+    all but a share `frac` of the points, and |k - p| <= `cap` on every
+    point) and the output against the golden (the app's own rule). With
+    `bands`, the plain version evaluates only the sub-tiles of the first
+    and the last `bands` bands, and the two are compared on the output rows
+    those cover. -> (the main path's group calls, its launches, the largest
+    max abs error against the plain version, the plain versions' ms, one
+    call each)."""
     from halide_tpu_torch.ops import group_kernel as gk
-    data = app.make_inputs(0)
-    app.bind(data)                         # onto the card
-    built = len(gk.builds)
     gk.launches = 0
     gk.rejects.clear()
     out = app.realize()                    # the main path
     torch.cuda.synchronize()
     launches, rejects = gk.launches, dict(gk.rejects)
+    calls = gk.group_calls(app.pipeline)
     say(f"{tile_note}: realize ok, kernel launches {launches}, "
-        f"rejects {rejects}, plan {gk.last_plan}")
-    if launches != 1 or rejects:
+        f"rejects {rejects}, plans {[c[0].record() for c in calls]}")
+    if launches != len(walks) or rejects or len(calls) != len(walks):
         raise SystemExit(f"{app.name}: the main path did not go through "
-                         f"the group kernel once (launches {launches}, "
-                         f"rejects {rejects})")
-    for h, secs in gk.builds[built:]:
-        say(f"nvcc build {h}: {secs:.1f} s")
-    plan, inputs, rmins, params, _realz = gk.group_call(app.pipeline)
-    kern = gk.launch(plan, inputs, rmins)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    diff = (kern.double() - plain.double()).abs()
-    err = diff.max().item()
-    bad = (diff > tol + rtol * plain.double().abs()).double().mean().item()
-    say(f"kernel vs plain version ({plain_ms / 1e3:.1f} s): max abs err "
-        f"{err!r} (allowed {cap}), share beyond {tol} + {rtol} |p| {bad!r} "
-        f"(allowed {frac})")
-    if not (bad <= frac and err <= cap):
-        raise SystemExit(f"{app.name}: kernel disagrees with its plain "
-                         f"version: {bad} of the points beyond {tol} + "
-                         f"{rtol} |p|, max abs err {err}")
-    check_golden(app.name, out.to_numpy(), app.reference(**data),
+                         f"the group kernel {len(walks)} times (launches "
+                         f"{launches}, rejects {rejects})")
+    got = [c[0].band_walk for c in calls]
+    if got != list(walks):
+        raise SystemExit(f"{app.name}: band walks {got}, expected {walks}")
+    err = plain_ms = 0.0
+    for plan, inputs, rmins, params, _realz in calls:
+        kern = gk.launch(plan, inputs, rmins)
+        rows, where = None, "every row"
+        if bands is not None:
+            n = plan.nty * plan.nsy
+            k = bands * plan.nsy
+            rows = set(range(min(k, n))) | set(range(max(n - k, 0), n))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device,
+                             rows)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if rows is not None:
+            ys = gk.plain_rows(plan, rows)
+            sel = torch.tensor(ys, device=kern.device)
+            dim = kern.ndim - 1 - plan.yi
+            kern, plain = kern.index_select(dim, sel), plain.index_select(
+                dim, sel)
+            first = gk.plain_rows(plan, range(min(k, n)))
+            last = gk.plain_rows(plan, range(max(n - k, 0), n))
+            where = (f"output rows {first[0]}-{first[-1]} and {last[0]}-"
+                     f"{last[-1]} of {plan.extents[plan.yi]} (the first and "
+                     f"last {bands} of {plan.nty} bands)")
+        diff = (kern.double() - plain.double()).abs()
+        e = diff.max().item()
+        bad = (diff > tol + rtol * plain.double().abs()).double().mean() \
+            .item()
+        say(f"kernel vs plain version, {plan.f.name} over "
+            f"{list(plan.extents)}, {where} ({ms / 1e3:.1f} s): max abs err "
+            f"{e!r} (allowed {cap}), share beyond {tol} + {rtol} |p| {bad!r} "
+            f"(allowed {frac})")
+        if not (bad <= frac and e <= cap):
+            raise SystemExit(f"{app.name}: kernel disagrees with its plain "
+                             f"version: {bad} of the points beyond {tol} + "
+                             f"{rtol} |p|, max abs err {e}")
+        err, plain_ms = max(err, e), plain_ms + ms
+    check_golden(app.name, out.to_numpy(),
+                 app.reference(**data) if golden is None else golden,
                  app.tolerance, app.atol, app.mismatch_frac)
-    return plan, inputs, rmins, params, launches, err, plain_ms
+    return calls, launches, err, plain_ms
+
+
+def plan_groups(apps):
+    """Realize each (bound) app once with K1's launch replaced by a stand-in
+    that keeps the plan and returns an empty output, so that every group's
+    source is known before any kernel runs. A rejected plan fails. ->
+    the plans."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    plans = []
+    orig = gk.launch
+
+    def keep(plan, inputs, real_mins):
+        plans.append(plan)
+        return torch.empty(tuple(reversed(plan.extents)),
+                           dtype=gk.torch_dtype(plan.out_type),
+                           device="cuda")
+    gk.rejects.clear()
+    gk.launch = keep
+    try:
+        for app in apps:
+            app.realize()
+    finally:
+        gk.launch = orig
+    if gk.rejects:
+        raise SystemExit(f"rejected group plans: {dict(gk.rejects)}")
+    return plans
+
+
+def div8_group(width, height, seed=0):
+    """A tile of width x height f32 reading a producer at (x / 8, y / 8):
+    src (root, 1/8 resolution) -> p (at the tiles, reads src at x / 8 and
+    (x + 7) / 8) -> c (tiled 256x64). The JAX package repeats src 8-fold in
+    the kernel (eval_jnp._reshape_repeat_ok, P4); K1 stages it as a d = 8
+    window. -> (pipeline, sizes, the f32 golden)."""
+    import halide_tpu_torch as hl
+    x, y = hl.Var("x"), hl.Var("y")
+    xo, yo, xi, yi = hl.Var("xo"), hl.Var("yo"), hl.Var("xi"), hl.Var("yi")
+    inp = hl.ImageParam(hl.Float(32), 2, "coarse")
+    a = np.random.default_rng(seed).random(
+        (height // 8 + 2, width // 8 + 2), np.float32)
+    inp.set(torch.from_numpy(a).cuda())
+    src, p, c = hl.Func("src"), hl.Func("p"), hl.Func("c")
+    src[x, y] = hl.repeat_edge(inp)[x, y] * 3 + 1
+    p[x, y] = src[x / 8, y / 8] + src[(x + 7) / 8, (y - 1) / 8] * 2
+    c[x, y] = p[x, y] + p[x + 1, y]
+    src.compute_root()
+    c.tile(x, y, xo, yo, xi, yi, 256, 64)
+    p.compute_at(c, xo)
+    f32 = np.float32
+    s = a * f32(3) + f32(1)
+    h8, w8 = s.shape
+    X, Y = np.arange(width + 1), np.arange(height)[:, None]
+
+    def at(ix, iy):
+        return s[np.clip(iy, 0, h8 - 1), np.clip(ix, 0, w8 - 1)]
+    pv = at(X // 8, Y // 8) + at((X + 7) // 8, (Y - 1) // 8) * f32(2)
+    return hl.Pipeline(c), [width, height], pv[:, :-1] + pv[:, 1:]
 
 
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
+    """One row of the kernel table. `ops` is (f32, integer) operations:
+    their least time is the larger of all of them issued at the f32 rate
+    (one operation per lane and cycle, either type) and the integer ones
+    on their own half-width lanes."""
+    f32_ops, int_ops = ops
     b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    b_ops = ops / F32_OPS_PER_S * 1e3
+    b_ops = max((f32_ops + int_ops) / F32_OPS_PER_S,
+                int_ops / INT_OPS_PER_S) * 1e3
     return dict({
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": max(b_bytes, b_ops),
         "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-        "library_ms": lib_ms}, **extra)
+        "library_ms": lib_ms, "f32_ops": f32_ops, "int_ops": int_ops},
+        **extra)
 
 
 def main():
@@ -334,39 +478,95 @@ def main():
     card = card_line()
     say(f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     import halide_tpu_torch  # noqa: F401  (fails where the port is absent)
-    from halide_tpu_torch.apps import (blur, hist, iir_blur, interpolate,
-                                       linear_blur, local_laplacian)
+    from halide_tpu_torch.apps import (App, blur, camera_pipe, hist,
+                                       iir_blur, interpolate, linear_blur,
+                                       local_laplacian, stencil_chain)
     from halide_tpu_torch.ops import build
     from halide_tpu_torch.ops import group_kernel as gk
     from halide_tpu_torch.ops import rowhist_kernel as rk
     from halide_tpu_torch.ops import scan_kernel as sk
 
+    phase("plan")
+    app_b = blur.build(2560, 1536, tile=(256, 128))
+    app_l = linear_blur.build(1536, 2560)
+    app_p = interpolate.build(1536, 2560)
+    app_ll = local_laplacian.build(1536, 2560)
+    app_s = stencil_chain.build(1536, 2560, 32, kernel=True)
+    app_c = camera_pipe.build(2560, 1920, kernel=True, tile=(2560, 128))
+    app_c64 = camera_pipe.build(2560, 1920, kernel=True, tile=(256, 64))
+    pipe_8, sizes_8, golden_8 = div8_group(1536, 2560)
+    app_8 = App("div8", pipe_8, [], lambda seed=0: {},
+                lambda: golden_8, sizes_8, tolerance=1e-6, atol=1e-6)
+    data = {}
+    apps = [app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_8]
+    for app in apps:
+        data[id(app)] = app.make_inputs(0)
+        app.bind(data[id(app)])            # onto the card
+    plans = plan_groups(apps)
+    sources = {p.symbol: p for p in plans}
+    say(f"{len(plans)} group plans, {len(sources)} kernel sources")
+
     phase("build")
-    with ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(build.load_fixed, n)
-                  for n in ("scan_kernel", "rowhist_kernel")]:
+    with ThreadPoolExecutor(8) as pool:
+        jobs = [pool.submit(build.load_fixed, n)
+                for n in ("scan_kernel", "rowhist_kernel")]
+        jobs += [pool.submit(gk.build, p) for p in sources.values()]
+        for f in jobs:
             f.result()
     for key, secs in build.builds:
         say(f"nvcc build {key}: {secs:.1f} s")
 
     phase("blur")
-    app_b = blur.build(2560, 1536, tile=(256, 128))
-    res_b = run_app(app_b, "blur 2560x1536 u16, tile 256x128", 0)
+    res_b = run_app(app_b, data[id(app_b)],
+                    "blur 2560x1536 u16, tile 256x128", 0)
 
     phase("linear_blur")
-    app_l = linear_blur.build(1536, 2560)
-    res_l = run_app(app_l, "linear_blur 1536x2560x3 f32, tile 1536x256",
-                    1e-4)
+    res_l = run_app(app_l, data[id(app_l)], "linear_blur 1536x2560x3 f32, "
+                    "tile 1536x256", 1e-4, walks=(True,))
+    # the same build walking two sub-tiles a block (the walk length the
+    # card took best, tools/k1_walk_sweep.py; two window buffers, the next
+    # sub-tile's staged by cp.async) and with its band walk off (one
+    # sub-tile a block): the values must not change
+    plan_l, in_l, rm_l, _pa, _r = res_l[0][0]
+    walk_on, walk_off = copy.copy(plan_l), copy.copy(plan_l)
+    walk_on.walk, walk_on.n_buf = 2, 2         # f32 windows: cp.async
+    walk_off.band_walk = False
+    k_pl = gk.launch(plan_l, in_l, rm_l)
+    k_on, k_off = gk.launch(walk_on, in_l, rm_l), gk.launch(walk_off, in_l,
+                                                           rm_l)
+    torch.cuda.synchronize()
+    err_on = max((k_on - k_pl).abs().max().item(),
+                 (k_off - k_pl).abs().max().item())
+    say(f"planned {plan_l.record()} vs walking {walk_on.record()} and "
+        f"walk off {walk_off.record()}: max abs err {err_on!r} (exact)")
+    if err_on != 0.0:
+        raise SystemExit("linear_blur: the walk changes the values")
 
     phase("interpolate")
-    app_p = interpolate.build(1536, 2560)
-    res_p = run_app(app_p, "interpolate 1536x2560x4 f32, 10 levels, tile "
-                    "256x64", 0.0, rtol=1e-5)
+    res_p = run_app(app_p, data[id(app_p)], "interpolate 1536x2560x4 f32, "
+                    "10 levels, tile 256x64", 0.0, rtol=1e-5)
 
     phase("local_laplacian")
-    app_ll = local_laplacian.build(1536, 2560)
-    res_ll = run_app(app_ll, "local_laplacian 1536x2560x3 u16, 8+8 levels, "
-                     "tile 256x64", 0.0, frac=0.003, cap=2.0)
+    res_ll = run_app(app_ll, data[id(app_ll)], "local_laplacian "
+                     "1536x2560x3 u16, 8+8 levels, tile 256x64", 0.0,
+                     frac=0.003, cap=2.0)
+
+    phase("stencil_chain")
+    res_s = run_app(app_s, data[id(app_s)], "stencil_chain 1536x2560 u16, "
+                    "32 stencils, groups of 8 in 128-row bands", 0,
+                    walks=(False, False, False, True), bands=2)
+
+    phase("camera_pipe")
+    golden_c = app_c.reference(**data[id(app_c)])
+    res_c = run_app(app_c, data[id(app_c)], "camera_pipe 2560x1920 u8, "
+                    "tile 2560x128", 0, walks=(True,), bands=2,
+                    golden=golden_c)
+    res_c64 = run_app(app_c64, data[id(app_c64)], "camera_pipe 2560x1920 "
+                      "u8, tile 256x64", 0, bands=2, golden=golden_c)
+
+    phase("div8")
+    res_8 = run_app(app_8, {}, "1536x2560 f32 tile reading (x / 8, y / 8)",
+                    0.0, rtol=1e-6)
 
     phase("iir_blur")
     app_i = iir_blur.build(1536, 2560, 0.1)
@@ -437,30 +637,81 @@ def main():
         scratch.zero_()
 
     kernels = []
-    for app, (plan, inputs, rmins, params, launches, err, p_ms) in (
-            (app_b, res_b), (app_l, res_l), (app_p, res_p),
-            (app_ll, res_ll)):
-        k_ms = event_ms(lambda: gk.launch(plan, inputs, rmins), 30, flush,
-                        hold=True)
+
+    def k1_row(name, replaces, app, res, **extra):
+        """A K1 row: the kernel's device time summed over the main path's
+        group calls (one launch each), its plain version's, the whole
+        realize and the bound of those calls' bytes and operations."""
+        calls, launches, err, p_ms = res
+        k_ms, nbytes, f32_ops, int_ops, per = 0.0, 0, 0, 0, []
+        for plan, inputs, rmins, _params, _realz in calls:
+            t = event_ms(lambda: gk.launch(plan, inputs, rmins), 30, flush,
+                         hold=True)
+            k_ms += t
+            nbytes += window_bytes(plan, inputs, rmins) \
+                + int(np.prod(plan.extents)) * gk.itemsize(plan.out_type)
+            f, i = count_ops(plan)
+            f32_ops, int_ops = f32_ops + f, int_ops + i
+            rec = plan.record()
+            per.append({k: rec[k] for k in ("func", "tile", "sub_tile",
+                                            "grid", "smem_bytes",
+                                            "band_walk", "walk", "n_buf",
+                                            "prefetch")} | {"ms": t})
         r_ms = event_ms(app.realize, 20, flush)
-        nbytes = window_bytes(plan, inputs, rmins) \
-            + int(np.prod(plan.extents)) * gk.itemsize(plan.out_type)
-        ops = count_ops(plan)
         row = kernel_row(
-            f"K1 stencil group ({app.name})",
-            "halide_tpu_torch/ops/group_kernel.py",
-            "halide_tpu/ops/pallas_group.py:696", launches, err, k_ms, p_ms,
-            nbytes, ops, None, realize_ms=r_ms, sub_tile=[plan.sx, plan.sy],
-            smem_bytes=plan.smem,
-            library_note="no single PyTorch call computes a fused group")
+            name, "halide_tpu_torch/ops/group_kernel.py", replaces,
+            launches, err, k_ms, p_ms, nbytes, (f32_ops, int_ops), None,
+            realize_ms=r_ms,
+            groups=per,
+            library_note="no single PyTorch call computes a fused group",
+            **extra)
         kernels.append(row)
-        say(f"{app.name} on {card}: kernel {k_ms:.4f} ms (device), plain "
-            f"version {p_ms:.1f} ms (one call), whole realize {r_ms:.4f} ms "
-            f"(host, to completion); bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({nbytes} bytes, {ops} operations)")
+        say(f"{name} on {card}: kernel {k_ms:.4f} ms (device, {launches} "
+            f"launches), plain version {p_ms:.1f} ms (one call each), whole "
+            f"realize {r_ms:.4f} ms (host, to completion); bound "
+            f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']} ({nbytes} "
+            f"bytes, {f32_ops} f32 and {int_ops} integer operations); groups "
+            f"{per}")
+        return row
+
+    k1 = "halide_tpu/ops/pallas_group.py:696"
+    k1_row(f"K1 stencil group ({app_b.name})", k1, app_b, res_b)
+    row_l = k1_row(f"K1 stencil group ({app_l.name})", k1, app_l, res_l)
+    # the band walk's own answer: the same build walking two sub-tiles a
+    # block and with the walk off, in turns (on, off, off, on)
+    t_on = [event_ms(lambda: gk.launch(walk_on, in_l, rm_l), 30, flush,
+                     hold=True)]
+    t_off = [event_ms(lambda: gk.launch(walk_off, in_l, rm_l), 30, flush,
+                      hold=True) for _ in range(2)]
+    t_on.append(event_ms(lambda: gk.launch(walk_on, in_l, rm_l), 30, flush,
+                         hold=True))
+    rec_on, rec_off = walk_on.record(), walk_off.record()
+    say(f"linear_blur K1 walking {rec_on['walk']} sub-tiles a block with "
+        f"{rec_on['n_buf']} window buffers {t_on} ms, walk off {t_off} ms "
+        "(device; on, off, off, on)")
+    kernels.append(dict(
+        row_l, name="P2 band walk in K1 (linear_blur)",
+        replaces="halide_tpu/ops/pallas_group.py:415",
+        max_abs_err=max(row_l["max_abs_err"], err_on),
+        ms=statistics.median(t_on), ms_walk_on=t_on, ms_walk_off=t_off,
+        walk_on={k: rec_on[k] for k in ("grid", "walk", "n_buf", "prefetch",
+                                        "smem_bytes")},
+        walk_off={k: rec_off[k] for k in ("grid", "smem_bytes")}))
+    k1_row(f"K1 stencil group ({app_p.name})", k1, app_p, res_p)
+    k1_row(f"K1 stencil group ({app_ll.name})", k1, app_ll, res_ll)
+    some = "the output rows of the first and last 2 bands of each launch"
+    k1_row(f"K1 stencil group ({app_s.name}, 4 groups)", k1, app_s, res_s,
+           plain_on=some)
+    k1_row(f"K1 stencil group ({app_c.name}, tile 2560x128)", k1, app_c,
+           res_c, plain_on=some)
+    k1_row(f"K1 stencil group ({app_c64.name}, tile 256x64)", k1, app_c64,
+           res_c64, plain_on=some)
+    k1_row("P4 8-fold repeat as K1's d = 8 window (1536x2560 f32)",
+           "halide_tpu/eval_jnp.py:890", app_8, res_8)
 
     def scan_times(calls):
-        """Summed over the calls: kernel and plain-version ms, bytes, ops."""
+        """Summed over the calls: kernel and plain-version ms, bytes, f32
+        operations (a multiply and an add per element)."""
         k_ms = p_ms = 0.0
         nbytes = ops = 0
         for (out, b, init, axis, bwd), kw in calls:
@@ -484,7 +735,7 @@ def main():
         "K2a scan, constant coefficient (iir_blur, per realize)",
         "halide_tpu_torch/ops/csrc/scan_kernel.cu",
         "halide_tpu/ops/pallas_scan.py:39", n_i["const"], err_i, k_ms, p_ms,
-        nbytes, ops, None, realize_ms=r_ms,
+        nbytes, (ops, 0), None, realize_ms=r_ms,
         library_note="no single torch call computes a recurrence with "
                      "a != 1 (cumsum is a = 1)"))
     say(f"iir_blur on {card}: K2a x4 {k_ms:.4f} ms (device), plain "
@@ -497,7 +748,7 @@ def main():
         "K2b scan, per-element coefficient (predicated scan)",
         "halide_tpu_torch/ops/csrc/scan_kernel.cu",
         "halide_tpu/ops/pallas_scan.py:71", n_g["general"], err_g, k_ms,
-        p_ms, nbytes, ops, None, realize_ms=r_ms,
+        p_ms, nbytes, (ops, 0), None, realize_ms=r_ms,
         library_note="no single torch call computes a recurrence with "
                      "a != 1 (cumsum is a = 1)"))
     say(f"scan_general on {card}: K2b {k_ms:.4f} ms (device), plain "
@@ -524,14 +775,16 @@ def main():
     kernels.append(kernel_row(
         "K3 row histogram (hist)", "halide_tpu_torch/ops/csrc/"
         "rowhist_kernel.cu", "halide_tpu/ops/onehot_mxu.py:103", n_h, err_h,
-        k_ms, p_ms, nbytes, 2 * lin_h.numel(), lib_ms, realize_ms=r_ms))
+        k_ms, p_ms, nbytes, (0, 2 * lin_h.numel()), lib_ms,
+        realize_ms=r_ms))
     say(f"hist on {card}: K3 {k_ms:.4f} ms (device), plain {p_ms:.2f} ms, "
         f"bincount {lib_ms:.4f} ms (to completion), whole realize "
         f"{r_ms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us "
         f"({nbytes} bytes)")
 
     phase("breakdown")
-    for app in (app_b, app_l, app_p, app_ll, app_i, app_h):
+    for app in (app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_8,
+                app_i, app_h):
         breakdown(app)
 
     phase("kernels")

@@ -19,7 +19,7 @@ import torch
 APPS: Dict[str, Callable] = {}
 
 _APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
-                "local_laplacian"]
+                "local_laplacian", "stencil_chain", "camera_pipe"]
 
 
 def register(name: str):

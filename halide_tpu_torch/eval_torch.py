@@ -650,10 +650,32 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
     if n == "lerp":
         return _lerp(eval_array(e.args[0], ctx), eval_array(e.args[1], ctx),
                      eval_array(e.args[2], ctx), e.dtype, e.args[2].dtype)
+    if n == "saturating_cast":
+        return saturating_cast(eval_array(e.args[0], ctx), e.args[0].dtype,
+                               e.dtype)
     if n == "undef":
         raise CompileError("undef() may only appear as a whole update value")
     raise NotImplementedError(
         f"intrinsic {n!r} is not ported yet (later slice of the port)")
+
+
+def saturating_cast(v: torch.Tensor, src: Type, t: Type) -> torch.Tensor:
+    """The reference's saturating_cast (`eval_jnp.py` `saturating_cast`):
+    float -> float is a plain cast; float -> integer clips to the target's
+    range in the float type and truncates, NaN giving 0 (XLA's conversion),
+    a bound that the float type rounds up (2^31 for i32 in f32) giving the
+    target's maximum; integer -> integer clamps in int64."""
+    if t.is_float():
+        return v.to(compute_dtype(t))
+    lo, hi = int(t.min_value()), int(t.max_value())
+    if src.is_float():
+        v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
+        v = v.clamp(float(lo), float(hi))
+        if t.bits == 64:       # int64 cannot hold the rounded-up bound
+            big = v >= float(hi)
+            r = torch.where(big, torch.zeros_like(v), v).to(torch.int64)
+            return torch.where(big, hi, r).to(compute_dtype(t))
+    return v.to(torch.int64).clamp(lo, hi).to(compute_dtype(t))
 
 
 def _lerp(zero, one, w, t: Type, wt: Type):

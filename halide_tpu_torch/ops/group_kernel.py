@@ -4,21 +4,36 @@ producers, computed in one CUDA launch.
 It replaces `halide_tpu/ops/pallas_group.py:_lower_group_single` (the
 Pallas kernel of the JAX package) for Hopper (sm_90a).
 
-- Bound: device-memory bytes. The work is a few operations per element
-  against each input read once and the output written once, at 3.35 TB/s
-  on an H100 SXM; the producers live in shared memory and never touch
-  device memory.
+- Bound: device-memory bytes where the work is a few operations per
+  element (blur, linear_blur, interpolate, local_laplacian): each input
+  read once and the output written once, at 3.35 TB/s on an H100 SXM; the
+  producers live in shared memory and never touch device memory. The deep
+  groups (stencil_chain's 8 stencils, camera_pipe's demosaic) are bound by
+  their f32/integer operations at 67 TFLOP/s.
 - Design: a CUDA block computes one sub-tile of a schedule tile. It stages
   the halo'd window of each input into shared memory (edge-replicated where
   the window leaves the realized region), evaluates each producer over the
   sub-tile's footprint into shared memory (recomputing the halo that
-  neighbouring sub-tiles also compute), and writes the sub-tile. The first
-  design accepts the halo recompute and stages with plain loads, no
-  `cp.async`, TMA or double buffering. The last tile's origin is shifted
-  inwards (min(o, extent - tile)), so one build serves the interior and the
-  ragged edge; where the extent is below the tile, the tile shrinks to the
-  extent. The sub-tile is chosen so that the shared memory a block needs
-  stays within a budget (at most 227 KB, the most a Hopper block can take).
+  neighbouring sub-tiles also compute), and writes the sub-tile. The last
+  tile's origin is shifted inwards (min(o, extent - tile)), so one build
+  serves the interior and the ragged edge; where the extent is below the
+  tile, the tile shrinks to the extent. The sub-tile is chosen so that the
+  shared memory a block needs stays within a budget (at most 227 KB, the
+  most a Hopper block can take); the members' buffers share it by
+  liveness, each free after the phase of its last reader.
+- Band walk (the counterpart of the JAX planner's band split, gated there
+  by the probe `_bandsplit_ok`, with its double-buffered window DMA): where
+  one tile spans the whole x extent, there are at least 4 row bands and the
+  row loop is parallel(), a plan is a band walk, and a block can walk
+  `walk` consecutive sub-tiles along y, across band boundaries. With two
+  window buffers it stages the next sub-tile's 4- and 8-byte windows by
+  cp.async while it computes the current one (narrower ones are staged
+  after the compute); with one it stages each sub-tile's windows before
+  computing it. Windows without a y dim are staged once per block. The
+  planner plans a walk of 1: every longer walk measured slower on the card
+  (`tools/k1_walk_sweep.py`, PERF.md) while the walk recomputes each
+  sub-tile's producers; `walk` and `n_buf` are plan fields that the chip
+  check and the sweep set. No TMA yet.
 
 The source of one group is emitted by this module: the member Funcs' point
 expressions and their footprint arithmetic, with the fixed helpers in
@@ -54,8 +69,7 @@ have no counterpart. A member whose footprint is div-indexed is rejected,
 as the JAX planner derives div symbols for inputs only.
 
 Not ported yet: the sliding-window carry of store_at producers (they are
-recomputed per sub-tile: same values), the megacore band split and
-double-buffered input staging.
+recomputed per sub-tile: same values).
 """
 from __future__ import annotations
 
@@ -73,7 +87,9 @@ from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
                           full_shape)
 from ..func import Func
 from ..htypes import Type, torch_dtype
+from ..schedule import ForType
 from ..visitors import mutate, substitute
+from ..visitors import walk as walk_expr
 from . import build as _build
 
 # ---------------------------------------------------------------------------
@@ -333,22 +349,99 @@ class _Stage:
 class GroupPlan:
     """Everything the kernel and its plain version need, fixed at plan
     time; only pointers, strides, realized bounds and the output region
-    are passed at launch."""
+    are passed at launch. The walk is passed at launch too, so that one
+    build runs any of them: on a band-walk plan `walk` may be set above 1,
+    with `n_buf` 2 where `prefetch` is "cp.async", and `band_walk` may be
+    set to False (one sub-tile per block)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
+    def shape(self) -> Tuple[int, int, int, int, Tuple[int, int]]:
+        """-> (walk, n_buf, member offset, shared-memory bytes, grid) of a
+        launch: the plan's walk, or one sub-tile per block with single-
+        buffered windows where band_walk is off."""
+        walk, n_buf = (self.walk, self.n_buf) if self.band_walk else (1, 1)
+        if n_buf == 2 and self.prefetch != "cp.async":
+            raise ValueError(f"{self.f.name}: two window buffers need a "
+                             "walking window staged ahead by cp.async")
+        moff = self.fixed_bytes + n_buf * self.walk_bytes
+        if moff + self.member_bytes > _SMEM_LIMIT:
+            raise ValueError(f"{self.f.name}: {n_buf} window buffers take "
+                             f"{moff + self.member_bytes} bytes of shared "
+                             "memory")
+        rows = self.nty * self.nsy
+        return (walk, n_buf, moff, moff + self.member_bytes,
+                (self.ntx * self.nsx, _cdiv(rows, walk)))
+
     def record(self) -> dict:
+        walk, n_buf, _moff, smem, grid = self.shape()
         return {"func": self.f.name, "tile": (self.tx, self.ty),
-                "sub_tile": (self.sx, self.sy),
-                "grid": (self.ntx * self.nsx, self.nty * self.nsy),
-                "smem_bytes": self.smem, "threads": _THREADS,
+                "sub_tile": (self.sx, self.sy), "grid": grid,
+                "smem_bytes": smem, "threads": _THREADS,
+                "band_walk": self.band_walk, "walk": walk, "n_buf": n_buf,
+                "prefetch": self.prefetch if n_buf == 2 else "none",
                 "windows": [w.name for w in self.windows],
                 "div_windows": {w.name: [(k, d) for k, d, _o, _e in w.dims
                                          if d > 1]
                                 for w in self.windows
                                 if any(d > 1 for _k, d, _o, _e in w.dims)},
                 "members": [m.name for m in self.members]}
+
+
+def band_walk_wanted(f: Func, xdim: str, ydim: Optional[str], ntx: int,
+                     nty: int) -> bool:
+    """The JAX planner's band-split condition (`pallas_group.py:759-790`,
+    gated there by the probe `_bandsplit_ok`): one tile spans the whole x
+    extent, there are at least 4 row bands, and the outer var of y's split
+    is parallel() while that of x's is not. The TPU remaps such a grid so
+    that each of its two cores walks its bands in order with the next
+    band's windows in flight; here a block walks consecutive sub-tiles
+    along y, staging the next one's windows while it computes."""
+    if ydim is None or ntx != 1 or nty < 4:
+        return False
+    s0 = f._defs[0].schedule
+    outer_of = {sp.old: sp.outer for sp in s0.splits if sp.kind == "split"}
+    par = {d.var for d in s0.dims if d.for_type == ForType.PARALLEL}
+    return outer_of.get(ydim) in par and outer_of.get(xdim) not in par
+
+
+def _aligned(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def _member_layout(members: List["_Stage"], out_value) -> int:
+    """Place the members' buffers by liveness (first fit): member k is
+    written in phase k + 1 and its buffer is free after the phase of its
+    last reader, a later member or the output (phase len + 1); a barrier
+    ends every phase. Sets each member's smem_off (from the member base)
+    and returns the bytes of the member region."""
+    phase = {id(m.target): k + 1 for k, m in enumerate(members)}
+    last = dict(phase)
+
+    def reads(value, ph):
+        def fn(e):
+            if isinstance(e, E.Call) and id(e.target) in last:
+                last[id(e.target)] = max(last[id(e.target)], ph)
+        walk_expr(value, fn)
+    for k, m in enumerate(members):
+        reads(m.value, k + 1)
+    reads(out_value, len(members) + 1)
+    placed: List[Tuple[int, int, int]] = []       # (off, end, last phase)
+    top = 0
+    for m in members:
+        size = _aligned(m.nbytes())
+        live = sorted((o, e) for o, e, lp in placed
+                      if lp >= phase[id(m.target)])
+        off = 0
+        for o, e in live:
+            if off + size <= o:
+                break
+            off = max(off, e)
+        m.smem_off = off
+        placed.append((off, off + size, last[id(m.target)]))
+        top = max(top, off + size)
+    return top
 
 
 def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
@@ -489,54 +582,94 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                     raise GroupUnsupported(f"multi-value input {name}")
         return stages
 
-    best, failed, classified = None, None, False
-    xs = sorted({min(s, tx) for s in _SUB_X})
-    ys = sorted({min(s, ty) for s in _SUB_Y}) if ydim else [1]
-    for sx in xs:
-        for sy in ys:
-            try:
-                stages = stages_for(sx, sy)
-            except _SubTileNotMultiple as ex:
-                failed = failed or ex
-                continue
-            classified = True
-            nbytes = sum(_cdiv(s.nbytes(), 16) * 16 for s in stages)
-            if nbytes > _SMEM_LIMIT:
-                continue
-            key = (nbytes > _SMEM_TARGET,
-                   nbytes / (sx * sy) if nbytes <= _SMEM_TARGET else nbytes,
-                   -sx * sy)
-            if best is None or key < best[0]:
-                best = (key, sx, sy, stages, nbytes)
-    if not classified:
-        raise failed
+    ntx = _cdiv(extents[xi], tx)
+    nty = _cdiv(extents[yi], ty) if yi is not None else 1
+    band_walk = band_walk_wanted(f, xdim, ydim, ntx, nty)
+    svalue = svals[id(f)]
+
+    def layout(stages):
+        """-> (fixed window bytes, walking window bytes, member bytes). A
+        walking window (one with a y dim) moves as a block walks along y,
+        so it is restaged every step; the others are staged once."""
+        fixed = sum(_aligned(s.nbytes()) for s in stages
+                    if s.value is None and not _walks(s))
+        moving = sum(_aligned(s.nbytes()) for s in stages
+                     if s.value is None and _walks(s))
+        by_id = {id(s.target): s for s in stages}
+        mem = _member_layout([by_id[id(m)] for m in members
+                              if id(m) in by_id], svalue)
+        return fixed, moving, mem
+
+    def search():
+        """The sub-tile with the least on-chip bytes per output element
+        within _SMEM_TARGET, else the least bytes within _SMEM_LIMIT."""
+        best, failed, classified = None, None, False
+        xs = sorted({min(s, tx) for s in _SUB_X})
+        ys = sorted({min(s, ty) for s in _SUB_Y}) if ydim else [1]
+        for sx in xs:
+            for sy in ys:
+                try:
+                    stages = stages_for(sx, sy)
+                except _SubTileNotMultiple as ex:
+                    failed = failed or ex
+                    continue
+                classified = True
+                nbytes = sum(layout(stages))
+                if nbytes > _SMEM_LIMIT:
+                    continue
+                key = (nbytes > _SMEM_TARGET,
+                       nbytes / (sx * sy) if nbytes <= _SMEM_TARGET
+                       else nbytes, -sx * sy)
+                if best is None or key < best[0]:
+                    best = (key, sx, sy, stages)
+        if not classified:
+            raise failed
+        return best
+
+    # the planned walk is one sub-tile a block, whose windows are counted
+    # once; a walk set later with two buffers takes their bytes again
+    best = search()
     if best is None:
         raise GroupUnsupported(
             f"shared-memory budget: no sub-tile of {tx}x{ty} fits "
             f"{_SMEM_LIMIT} bytes")
-    _key, sx, sy, stages, nbytes = best
+    _key, sx, sy, stages = best
     _check_div_cover(stages, footprints, sub_scope, sx, sy)
-    windows = [s for s in stages if s.value is None]
+    windows = ([s for s in stages if s.value is None and not _walks(s)]
+               + [s for s in stages if s.value is None and _walks(s)])
     by_id = {id(s.target): s for s in stages}
     ordered = windows + [by_id[id(m)] for m in members if id(m) in by_id]
+    fixed_bytes, walk_bytes, member_bytes = layout(stages)
     off = 0
     for k, s in enumerate(ordered):
         s.index = k
-        s.smem_off = off
-        off += _cdiv(s.nbytes(), 16) * 16
+        if s.value is None:
+            s.smem_off = off
+            off += _aligned(s.nbytes())
+    nsx = _cdiv(tx, sx)
+    nsy = _cdiv(ty, sy) if yi is not None else 1
+    # cp.async moves 4, 8 or 16 bytes: narrower walking windows are staged
+    # after the compute even with two buffers
+    ahead = any(itemsize(w.type) in (4, 8) for w in windows if _walks(w))
     out_type = f._defs[0].values[0].dtype
     ctype(out_type)
     for s in ordered:
         ctype(s.type)
     plan = GroupPlan(
-        f=f, value=svals[id(f)], out_type=out_type, dims=dims, xi=xi, yi=yi,
+        f=f, value=svalue, out_type=out_type, dims=dims, xi=xi, yi=yi,
         mins=mins, extents=extents, tx=tx, ty=ty, sx=sx, sy=sy,
-        ntx=_cdiv(extents[xi], tx),
-        nty=_cdiv(extents[yi], ty) if yi is not None else 1,
-        nsx=_cdiv(tx, sx), nsy=_cdiv(ty, sy) if yi is not None else 1,
-        windows=windows, members=ordered[len(windows):], smem=off)
+        ntx=ntx, nty=nty, nsx=nsx, nsy=nsy,
+        windows=windows, members=ordered[len(windows):],
+        fixed_bytes=fixed_bytes, walk_bytes=walk_bytes,
+        member_bytes=member_bytes, band_walk=band_walk, walk=1, n_buf=1,
+        prefetch="cp.async" if ahead else "none")
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
+
+
+def _walks(s: "_Stage") -> bool:
+    """A stage that moves with the sub-tile's y origin."""
+    return any(k == "y" for k, _d, _o, _e in s.dims)
 
 
 def _check_div_cover(stages, footprints, sub_scope, sx, sy):
@@ -598,18 +731,19 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
     return Realized((out,), plan.mins, f.name)
 
 
-def group_call(pipeline, device=None):
-    """The group of `pipeline`'s last realize, made again so that the kernel
-    can be held against its plain version (the tests, the chip check): the
-    plan comes from the realize's planned graph, and the group's inputs from
-    evaluating every stored stage whole-array over the box that realize gave
-    it. -> (plan, inputs, real_mins, params, realizations). A realize keeps
-    none of its tensors for this."""
+def group_calls(pipeline, device=None) -> list:
+    """Every group of `pipeline`'s last realize, in the order it ran them,
+    made again so that the kernel can be held against its plain version
+    (the tests, the chip check): each plan comes from the realize's planned
+    graph, and the groups' inputs from evaluating every stored stage
+    whole-array over the box that realize gave it. -> [(plan, inputs,
+    real_mins, params, realizations)]. A realize keeps none of its tensors
+    for this."""
     from ..buffer import Buffer
     from ..pipeline import _evaluate_func, gather_graph, resolve_device
     dev = resolve_device(device)
     planned = list(pipeline._plan_cache.values())[-1].planned
-    plan = [p for p in planned["groups"].values() if p][-1]
+    plans = [p for p in planned["groups"].values() if p]
     g = gather_graph(pipeline.outputs)
     realz: Dict[int, Realized] = {}
     for t in g.inputs.values():
@@ -621,20 +755,28 @@ def group_call(pipeline, device=None):
         box = planned["boxes"].get(id(fn))
         if id(fn) in g.materialized and box is not None and box.defined():
             realz[id(fn)] = _evaluate_func(fn, box, ctx0)
-    inputs = [realz[id(w.target)].arrays[0] for w in plan.windows]
-    real_mins = [realz[id(w.target)].mins for w in plan.windows]
-    return plan, inputs, real_mins, params, realz
+    return [(plan, [realz[id(w.target)].arrays[0] for w in plan.windows],
+             [realz[id(w.target)].mins for w in plan.windows], params, realz)
+            for plan in plans]
+
+
+def group_call(pipeline, device=None):
+    """The last group of `pipeline`'s last realize (`group_calls`)."""
+    return group_calls(pipeline, device)[-1]
 
 
 # ---------------------------------------------------------------------------
 # the plain PyTorch version of the plan
 # ---------------------------------------------------------------------------
 
-def _origins(plan: GroupPlan):
+def _origins(plan: GroupPlan, rows=None):
     """Sub-tile origins (x0, y0) of every block, as the kernel computes
-    them: shift-inwards tiles, shift-inwards sub-tiles within each."""
+    them: shift-inwards tiles, shift-inwards sub-tiles within each. `rows`
+    keeps the sub-tile rows it holds (indices along y), where given."""
     xi, yi = plan.xi, plan.yi
     for by in range(plan.nty * plan.nsy):
+        if rows is not None and by not in rows:
+            continue
         for bx in range(plan.ntx * plan.nsx):
             ox = min(plan.mins[xi] + (bx // plan.nsx) * plan.tx,
                      plan.mins[xi] + plan.extents[xi] - plan.tx)
@@ -647,6 +789,14 @@ def _origins(plan: GroupPlan):
             yield x0, y0
 
 
+def plain_rows(plan: GroupPlan, rows) -> List[int]:
+    """Indices, from the output's y min, of the output rows that the sub-
+    tile rows `rows` write (a plan with a y dim)."""
+    return sorted({y0 - plan.mins[plan.yi] + i
+                   for _x0, y0 in _origins(plan, rows)
+                   for i in range(plan.sy)})
+
+
 def _stage_box(s: _Stage, x0: int, y0: int):
     """[(lo, ext)] of a stage for the sub-tile at (x0, y0), as the kernel
     computes it (floor division for a div-indexed dim)."""
@@ -655,15 +805,17 @@ def _stage_box(s: _Stage, x0: int, y0: int):
 
 
 def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
-              dev: torch.device) -> torch.Tensor:
+              dev: torch.device, rows=None) -> torch.Tensor:
     """The same plan as the kernel, block by block, in torch: windows
     gathered with edge replication, members and the sub-tile evaluated with
     eval_torch over the same boxes, in the same storage types. `params`
-    maps id(Param) to its value."""
+    maps id(Param) to its value. With `rows` (sub-tile row indices), only
+    those sub-tiles are evaluated, and the rest of the output is left
+    unwritten (`plain_rows` gives the output rows they cover)."""
     n = len(plan.dims)
     out = torch.empty(tuple(reversed(plan.extents)),
                       dtype=torch_dtype(plan.out_type), device=dev)
-    for x0, y0 in _origins(plan):
+    for x0, y0 in _origins(plan, rows):
         realz: Dict[int, Realized] = {}
         for w, arr, rmins in zip(plan.windows, inputs, real_mins):
             lohi = _stage_box(w, x0, y0)
@@ -824,6 +976,16 @@ class _PointEmitter:
             at = e.args[0].dtype
             v = f"hl_abs<{ctype(at)}>({self.val(e.args[0])})"
             return self.let(e.dtype, f"hl_cast<{ctype(e.dtype)}>({v})")
+        if n == "absd":
+            at = ctype(e.args[0].dtype)
+            a, b = self.val(e.args[0]), self.val(e.args[1])
+            return self.let(e.dtype, f"hl_absd<{ctype(e.dtype)}, {at}>("
+                                     f"{a}, {b})")
+        if n == "saturating_cast":
+            v = self.val(e.args[0])
+            return self.let(e.dtype, "hl_saturating_cast<"
+                                     f"{ctype(e.dtype)}, "
+                                     f"{ctype(e.args[0].dtype)}>({v})")
         if n == "bitnot":
             return self.let(e.dtype, f"({ctype(e.dtype)})(~"
                                      f"{self.val(e.args[0])})")
@@ -890,6 +1052,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     stages = plan.windows + plan.members
     by_id = {id(s.target): s for s in stages}
     nd_out = len(plan.dims)
+    moving = [w for w in plan.windows if _walks(w)]
     L: List[str] = [
         "// Stencil-group kernel, emitted by halide_tpu_torch/ops/"
         "group_kernel.py",
@@ -902,10 +1065,13 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "",
         f"constexpr int SX = {plan.sx};",
         f"constexpr int SY = {plan.sy};",
-        f"constexpr int SMEM = {plan.smem};",
+        "constexpr int SMEM_MAX = %d;  // the two-buffer layout's bytes"
+        % (plan.fixed_bytes + 2 * plan.walk_bytes + plan.member_bytes),
+        f"constexpr int WALK_BYTES = {plan.walk_bytes};",
         "",
-        "// the shared-memory buffers of one block and their origins",
+        "// the shared-memory buffers of one sub-tile and their origins",
         "struct Tile {",
+        "  int x0, y0;",
     ]
     for s in stages:
         L.append(f"  const {ctype(s.type)}* {_field(s)};")
@@ -933,6 +1099,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
           f"  int out_min[{nd_out}];",
           f"  int out_ext[{nd_out}];",
           "  int tile_x, tile_y, nsub_x, nsub_y;",
+          "  int rows, walk, nbuf, moff;",
           "};", ""]
 
     def walk_box(lines, ext, body):
@@ -951,12 +1118,13 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         lines += body
         lines.append("    }")
 
+    # the sub-tile of row r: origins, buffers (walking windows in buffer
+    # `buf`, members above the windows at p.moff) and window origins
     L += [
-        "// One phase of one block: phase 0 stages the input windows, phase",
-        "// 1 + k evaluates member k over its footprint, the last phase",
-        "// writes the sub-tile. Threads tid, tid + nth, ... share the work.",
-        "HL_FN void phase(const Params& p, int bx, int by, int tid, int nth,",
-        "                 unsigned char* smem, int ph) {",
+        "// Sub-tile (bx, r): column bx of the sub-tile grid, row r along y.",
+        "HL_FN Tile tile_at(const Params& p, int bx, int r, int buf,",
+        "                   unsigned char* smem) {",
+        "  Tile t;",
         "  const int ox = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], "
         "p.tile_x, bx / p.nsub_x);" % (plan.xi, plan.xi),
         "  const int x0 = ox + hl_min<int>((bx % p.nsub_x) * SX, "
@@ -965,32 +1133,57 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     if plan.yi is not None:
         L += [
             "  const int oy = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], "
-            "p.tile_y, by / p.nsub_y);" % (plan.yi, plan.yi),
-            "  const int y0 = oy + hl_min<int>((by % p.nsub_y) * SY, "
+            "p.tile_y, r / p.nsub_y);" % (plan.yi, plan.yi),
+            "  const int y0 = oy + hl_min<int>((r % p.nsub_y) * SY, "
             "p.tile_y - SY);",
         ]
     else:
-        L.append("  const int y0 = 0; (void)by;")
-    L.append("  Tile t;")
+        L.append("  const int y0 = 0; (void)r;")
+    L.append("  t.x0 = x0; t.y0 = y0; (void)buf;")
     for s in stages:
         cn = _field(s)
-        L.append(f"  t.{cn} = (const {ctype(s.type)}*)(smem + {s.smem_off});")
+        if s.value is not None:
+            base = f"smem + p.moff + {s.smem_off}"
+        elif _walks(s):
+            base = f"smem + {s.smem_off} + buf * WALK_BYTES"
+        else:
+            base = f"smem + {s.smem_off}"
+        L.append(f"  t.{cn} = (const {ctype(s.type)}*)({base});")
         for j, (k, d, off, _e) in enumerate(s.dims):
             origin = {"x": "x0", "y": "y0", "s": ""}[k]
             if origin and d > 1:       # floor division, never C's `/`
                 origin = f"hl_div<int>({origin}, {d})"
             base = f"{origin} + " if origin else ""
             L.append(f"  t.{cn}_lo[{j}] = {base}{off};")
-    L.append("  switch (ph) {")
-    L.append("  case 0: {")
+    L += ["  return t;", "}", ""]
+    # each window's extents, declared in every function that stages it (a
+    # namespace-scope array's address cannot be taken in device code)
+    exts = {k: "  const int ext%d[%d] = {%s};" % (
+        k, len(w.dims), ", ".join(str(e) for _k, _d, _o, e in w.dims))
+        for k, w in enumerate(plan.windows)}
+    L += [
+        "// Stage the windows of sub-tile (bx, r) with plain loads: the",
+        "// walking ones, and the fixed ones too where `fixed`.",
+        "HL_FN void stage(const Params& p, int bx, int r, int buf, int tid,",
+        "                 int nth, unsigned char* smem, bool fixed) {",
+        "  const Tile t = tile_at(p, bx, r, buf, smem);",
+        "  (void)fixed;",
+    ] + list(exts.values())
     for k, w in enumerate(plan.windows):
-        cn = _field(w)
-        ext = ", ".join(str(e) for _k, _d, _o, e in w.dims)
-        L.append(f"    const int ext{k}[{len(w.dims)}] = {{{ext}}};")
-        L.append(f"    hl_stage_window<{ctype(w.type)}, {len(w.dims)}>("
-                 f"({ctype(w.type)}*)t.{cn}, p.in{k}, t.{cn}_lo, ext{k}, "
-                 "tid, nth);")
-    L += ["    break;", "  }"]
+        cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
+        call = (f"hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, p.in{k}, "
+                f"t.{cn}_lo, ext{k}, tid, nth);")
+        L.append(f"  {call}" if _walks(w) else f"  if (fixed) {call}")
+    L += ["}", ""]
+    L += [
+        "// Phase 1 + k evaluates member k over its footprint, the last",
+        "// phase writes the sub-tile. Threads tid, tid + nth, ... share",
+        "// the work.",
+        "HL_FN void phase(const Params& p, int bx, int r, int buf, int tid,",
+        "                 int nth, unsigned char* smem, int ph) {",
+        "  const Tile t = tile_at(p, bx, r, buf, smem);",
+        "  switch (ph) {",
+    ]
     for k, m in enumerate(plan.members):
         cn = _field(m)
         L.append(f"  case {k + 1}: {{")
@@ -1004,10 +1197,10 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     for i in range(nd_out):
         if i == plan.xi:
             ext.append(plan.sx)
-            lo.append("x0")
+            lo.append("t.x0")
         elif i == plan.yi:
             ext.append(plan.sy)
-            lo.append("y0")
+            lo.append("t.y0")
         else:
             ext.append(plan.extents[i])
             lo.append(str(plan.mins[i]))
@@ -1019,7 +1212,61 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     walk_box(L, ext, body)
     L += ["    break;", "  }", "  }", "}", ""]
     nphase = len(plan.members) + 2
-    L += [f"constexpr int NPHASE = {nphase};", "", "}  // namespace", ""]
+    L += [f"constexpr int NPHASE = {nphase};", ""]
+
+    # the next sub-tile's walking windows, staged ahead of the compute by
+    # cp.async, the narrower ones after it
+    L += ["HL_FN void prefetch_start(const Params& p, int bx, int r, int buf,",
+          "                          int tid, int nth, unsigned char* smem) {",
+          "  const Tile t = tile_at(p, bx, r, buf, smem);",
+          "  (void)t;"]
+    fin = ["HL_FN void prefetch_finish(const Params& p, int bx, int r,",
+           "                           int buf, int tid, int nth,",
+           "                           unsigned char* smem) {",
+           "  const Tile t = tile_at(p, bx, r, buf, smem);",
+           "  (void)t;"]
+    if plan.prefetch == "cp.async":
+        fin.append("  hl_async_wait();")
+    for k, w in enumerate(plan.windows):
+        if w not in moving:
+            continue
+        cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
+        call = (f"<{ct}, {nd}>(({ct}*)t.{cn}, p.in{k}, t.{cn}_lo, ext{k}, "
+                "tid, nth);")
+        if itemsize(w.type) in (4, 8):
+            L += [exts[k], f"  hl_stage_window_async{call}"]
+        else:
+            fin += [exts[k], f"  hl_stage_window{call}"]
+    L += ["}", ""] + fin + ["}", ""]
+    L += [
+        "// One block: column bx of the sub-tile grid, walking sub-tile rows",
+        "// [by * walk, by * walk + walk) in order (one row where the band",
+        "// walk is off). With two window buffers the next row's walking",
+        "// windows are staged while the current row computes.",
+        "HL_FN void run_block(const Params& p, int bx, int by, int tid,",
+        "                     int nth, unsigned char* smem) {",
+        "  const int r0 = by * p.walk;",
+        "  const int r1 = hl_min<int>(r0 + p.walk, p.rows);",
+        "  for (int r = r0; r < r1; ++r) {",
+        "    const int buf = p.nbuf == 2 ? (r - r0) & 1 : 0;",
+        "    if (r == r0 || p.nbuf == 1) {",
+        "      stage(p, bx, r, buf, tid, nth, smem, r == r0);",
+        "      hl_sync();",
+        "    }",
+        "    const bool ahead = p.nbuf == 2 && r + 1 < r1;",
+        "    if (ahead) prefetch_start(p, bx, r + 1, buf ^ 1, tid, nth, smem);",
+        "    for (int ph = 1; ph < NPHASE; ++ph) {",
+        "      if (ph > 1) hl_sync();",
+        "      phase(p, bx, r, buf, tid, nth, smem, ph);",
+        "    }",
+        "    if (ahead) prefetch_finish(p, bx, r + 1, buf ^ 1, tid, nth, smem);",
+        "    hl_sync();",
+        "  }",
+        "}",
+        "",
+        "}  // namespace",
+        "",
+    ]
 
     # the launcher's plain C signature, and ctypes argtypes to match
     sig: List[Tuple[str, str, object]] = []
@@ -1036,7 +1283,8 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                      ("ext", ("int", ctypes.c_int))):
         for j in range(nd_out):
             sig.append((ct[0], f"out_{kind}{j}", ct[1]))
-    for name in ("tile_x", "tile_y", "nsub_x", "nsub_y", "grid_x", "grid_y"):
+    for name in ("tile_x", "tile_y", "nsub_x", "nsub_y", "rows", "walk",
+                 "nbuf", "moff", "smem_bytes", "grid_x", "grid_y"):
         sig.append(("int", name, ctypes.c_int))
     params = ", ".join(f"{c} {n}" for c, n, _ in sig)
     fill = []
@@ -1053,40 +1301,41 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                     f"p.out_ext[{j}] = out_ext{j};")
     fill.append("  p.tile_x = tile_x; p.tile_y = tile_y; "
                 "p.nsub_x = nsub_x; p.nsub_y = nsub_y;")
+    fill.append("  p.rows = rows; p.walk = walk; p.nbuf = nbuf; "
+                "p.moff = moff;")
     L += [
         "#ifdef __CUDACC__",
         f"__global__ void __launch_bounds__({_THREADS}) KERNEL(Params p) {{",
         "  extern __shared__ __align__(16) unsigned char smem[];",
-        "  for (int ph = 0; ph < NPHASE; ++ph) {",
-        "    phase(p, blockIdx.x, blockIdx.y, threadIdx.x, blockDim.x, smem,"
-        " ph);",
-        "    __syncthreads();",
-        "  }",
+        "  run_block(p, blockIdx.x, blockIdx.y, threadIdx.x, blockDim.x,"
+        " smem);",
         "}",
         "",
         f'extern "C" int LAUNCH({params}, void* stream) {{',
         "  Params p;",
     ] + fill + [
-        "  if (SMEM > 48 * 1024) {",
+        "  if (smem_bytes > 48 * 1024) {",
         "    cudaError_t e = cudaFuncSetAttribute(",
-        "        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);",
+        "        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,"
+        " smem_bytes);",
         "    if (e != cudaSuccess) return (int)e;",
         "  }",
-        f"  KERNEL<<<dim3(grid_x, grid_y), {_THREADS}, SMEM, "
+        f"  KERNEL<<<dim3(grid_x, grid_y), {_THREADS}, smem_bytes, "
         "(cudaStream_t)stream>>>(p);",
         "  return (int)cudaGetLastError();",
         "}",
         "#else",
-        "// Host build of the same blocks, one thread each (CPU tests).",
+        "// Host build of the same blocks and walk, one thread each (CPU",
+        "// tests).",
         f'extern "C" int HOST({params}) {{',
         "  Params p;",
     ] + fill + [
-        "  static unsigned char smem[SMEM > 0 ? SMEM : 16]"
+        "  static unsigned char smem[SMEM_MAX > 0 ? SMEM_MAX : 16]"
         " __attribute__((aligned(16)));",
+        "  if (smem_bytes > SMEM_MAX) return 1;",
         "  for (int by = 0; by < grid_y; ++by)",
         "    for (int bx = 0; bx < grid_x; ++bx)",
-        "      for (int ph = 0; ph < NPHASE; ++ph)",
-        "        phase(p, bx, by, 0, 1, smem, ph);",
+        "      run_block(p, bx, by, 0, 1, smem);",
         "  return 0;",
         "}",
         "#endif",
@@ -1122,7 +1371,7 @@ def build(plan: GroupPlan) -> ctypes.CDLL:
 def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     """The launcher's arguments after the kernel's own constants: pointers,
     strides and realized bounds per pipeline dim, the output region, the
-    tile and the grid."""
+    tile, the walk (GroupPlan.shape) and the grid."""
     args = []
     for w, arr, rmins in zip(plan.windows, inputs, real_mins):
         nd = arr.ndim
@@ -1134,8 +1383,9 @@ def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     args.append(out.data_ptr())
     args += [out.stride(n - 1 - j) for j in range(n)]
     args += list(plan.mins) + list(plan.extents)
-    args += [plan.tx, plan.ty, plan.nsx, plan.nsy,
-             plan.ntx * plan.nsx, plan.nty * plan.nsy]
+    walk, n_buf, moff, smem, grid = plan.shape()
+    args += [plan.tx, plan.ty, plan.nsx, plan.nsy, plan.nty * plan.nsy,
+             walk, n_buf, moff, smem, grid[0], grid[1]]
     return args
 
 

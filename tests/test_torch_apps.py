@@ -46,7 +46,8 @@ def _run_both(name, monkeypatch, jax_env=None, seed=0, **kw):
     if jax_env:
         for k, v in jax_env.items():
             monkeypatch.setenv(k, v)
-    jkw = {k: v for k, v in kw.items() if k != "tile"}
+    jkw = {k: v for k, v in kw.items()
+           if k not in ("tile", "kernel", "slide", "roots")}
     japp = jax_get(name)(**jkw)
     jdata = japp.make_inputs(seed)
     for k in data:
@@ -218,3 +219,84 @@ def test_pyramid_apps_default_tile():
         assert gk.find_tile(tiled) == ("x", 256, "y", 64)
         root = mod.build(width=96, height=64).pipeline.outputs[0]
         assert gk.find_tile(root) is None
+
+
+def _groups_of(name, monkeypatch, jax_env, **kw):
+    """The port's realize (counting the groups that ran through the plan
+    and its plain version) against the JAX app under `jax_env` and the
+    golden, bit for bit. -> the plan record of each group, in order."""
+    recs = []
+    orig = gk.run_plain
+
+    def spy(plan, *a, **k):
+        recs.append(plan.record())
+        return orig(plan, *a, **k)
+
+    monkeypatch.setattr(gk, "run_plain", spy)
+    rejects = sum(gk.rejects.values())
+    app, data, got, want = _run_both(name, monkeypatch, jax_env, **kw)
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+    return recs
+
+
+# (w, h, stencils, build arguments, JAX env, the groups' band walks)
+STENCIL_CHAIN_CASES = [
+    (256, 128, 12, {}, None, []),
+    (256, 128, 12, {"kernel": True}, {"HALIDE_TPU_SC_KERNEL": "1"},
+     [False, False]),
+    (256, 512, 12, {"kernel": True}, {"HALIDE_TPU_SC_KERNEL": "1"},
+     [False, True]),
+    (256, 128, 12, {"slide": 128}, {"HALIDE_TPU_SC_SLIDE": "128"},
+     [False, False]),
+    (256, 512, 12, {"slide": 128}, {"HALIDE_TPU_SC_SLIDE": "128"},
+     [False, False]),
+]
+
+
+@pytest.mark.parametrize("w,h,n,kw,env,walks", STENCIL_CHAIN_CASES)
+def test_stencil_chain(w, h, n, kw, env, walks, monkeypatch):
+    """Whole-array, the kernel branch (one group per 8 stencils in bands
+    of the output's width: the first anchor, wider by the reach of the
+    stencils after it, takes two tiles across and is no band walk; the
+    last is one at 4 bands) and the sliding branch (narrower tiles: no
+    walk; the store_at producers are recomputed per sub-tile)."""
+    recs = _groups_of("stencil_chain", monkeypatch, env, width=w, height=h,
+                      stencils=n, **kw)
+    assert [r["band_walk"] for r in recs] == walks
+    assert [r["func"] for r in recs] == ["stage_7", "stage_11"][:len(walks)]
+    for r in recs:
+        stencils = 8 if r["func"] == "stage_7" else 4
+        assert len(r["members"]) == 2 * stencils - 1
+
+
+# (w, h, build arguments, JAX env, the group's band walk or None)
+CAMERA_PIPE_CASES = [
+    (512, 128, {}, None, None),
+    (512, 128, {"roots": "deinterleaved,g_r,g_b,curved"},
+     {"HALIDE_TPU_CP_ROOTS": "deinterleaved,g_r,g_b,curved"}, None),
+    (512, 128, {"kernel": True}, {"HALIDE_TPU_CP_KERNEL": "1"}, False),
+    (512, 512, {"kernel": True, "tile": (512, 128)},
+     {"HALIDE_TPU_CP_KERNEL": "1", "HALIDE_TPU_CP_TILE": "512x128"}, True),
+]
+
+
+@pytest.mark.parametrize("w,h,kw,env,walk", CAMERA_PIPE_CASES)
+def test_camera_pipe(w, h, kw, env, walk, monkeypatch):
+    """Bit-exact u8: the whole-array branch (its root set as an argument)
+    and the kernel branch, whose full-width 512x128 tile walks 4 bands."""
+    recs = _groups_of("camera_pipe", monkeypatch, env, out_width=w,
+                      out_height=h, **kw)
+    assert [r["band_walk"] for r in recs] == ([] if walk is None
+                                              else [walk])
+    for r in recs:
+        assert r["members"] == ["demosaiced", "curved", "unsharp_y"]
+        assert set(r["div_windows"]) == {"deinterleaved", "g_r", "g_b"}
+
+
+def test_camera_pipe_roots_name_a_stage():
+    from halide_tpu_torch import CompileError
+    from halide_tpu_torch.apps import camera_pipe
+    with pytest.raises(CompileError, match="unknown stage 'nope'"):
+        camera_pipe.build(out_width=64, out_height=32, roots="g_r,nope")

@@ -206,3 +206,120 @@ def test_div_reads_take_the_slice_path(dtype, lo, hi, monkeypatch):
     monkeypatch.setattr(et, "_gather_read", no_gather)
     got = _realize(ht, _div_reads, dtype, a, b)
     np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# saturating_cast and absd at and beyond the limits (camera_pipe's output
+# stage and demosaic): the inputs hold the edge values first, then values
+# drawn from a seed; absd pairs each element with a rolled copy.
+# ---------------------------------------------------------------------------
+
+IW, IH = 16, 8
+
+EDGE_VALUES = {
+    "float32": [np.nan, -np.inf, np.inf, -1e10, 1e10, -32769.0, -32768.5,
+                -32768.0, -0.7, -0.0, 0.0, 0.4, 127.5, 254.5, 255.0, 255.5,
+                255.9, 256.0, 300.0, 32767.0, 32767.5, 32768.0, 2147483520.0,
+                2147483648.0, -2147483648.0, -2147483904.0, 4e9, -np.nan],
+    "int32": [-(1 << 31), (1 << 31) - 1, -1, 0, 1, 127, 128, 255, 256, 1000,
+              -1000, 65535, 65536],
+    "uint16": [0, 1, 255, 256, 32767, 32768, 32769, 65535],
+    "int16": [-32768, 32767, -1, 0, 1, 100, -100, -32767, 32766],
+    "int8": [-128, 127, -1, 0, 1, 64, -64, -127, 126],
+}
+
+_ITYPES = {"float32": "Float(32)", "int32": "Int(32)", "uint16": "UInt(16)",
+           "int16": "Int(16)", "int8": "Int(8)"}
+
+
+def intrin_inputs(dtype, seed=5):
+    """(a, b): IH x IW arrays of `dtype`, the edge values first."""
+    rng = np.random.default_rng(seed)
+    if dtype == "float32":
+        a = rng.uniform(-70000, 70000, IH * IW).astype(np.float32)
+    else:
+        info = np.iinfo(dtype)
+        a = rng.integers(info.min, info.max, IH * IW, endpoint=True,
+                         dtype=np.int64).astype(dtype)
+    edge = np.array(EDGE_VALUES[dtype]).astype(dtype)
+    a[:len(edge)] = edge
+    a = a.reshape(IH, IW)
+    return a, np.roll(a, 7)
+
+
+INTRIN_CASES = {
+    "sat_f32_u8": (lambda m, a, b, x, y: m.saturating_cast(m.UInt(8),
+                                                           a[x, y]),
+                   "float32"),
+    "sat_f32_i16": (lambda m, a, b, x, y: m.saturating_cast(m.Int(16),
+                                                            a[x, y]),
+                    "float32"),
+    "sat_f32_i32": (lambda m, a, b, x, y: m.saturating_cast(m.Int(32),
+                                                            a[x, y]),
+                    "float32"),
+    "sat_i32_u8": (lambda m, a, b, x, y: m.saturating_cast(m.UInt(8),
+                                                           a[x, y]),
+                   "int32"),
+    "sat_u16_i16": (lambda m, a, b, x, y: m.saturating_cast(m.Int(16),
+                                                            a[x, y]),
+                    "uint16"),
+    "absd_i16": (lambda m, a, b, x, y: m.absd(a[x, y], b[x, y]), "int16"),
+    "absd_i8": (lambda m, a, b, x, y: m.absd(a[x, y], b[x, y]), "int8"),
+    "absd_i16_in_u16_sum": (
+        lambda m, a, b, x, y: m.absd(a[x, y], b[x, y])
+        + m.absd(b[x, y], a[x, y]), "int16"),
+}
+
+
+def intrin_pipeline(m, case, a_np, b_np, tile=None, device="cpu"):
+    """f[x, y] = the case's expression of a and b, tiled by `tile` (the
+    stencil-group kernel's path) or not (whole-array)."""
+    fn, dtype = INTRIN_CASES[case]
+    t = eval("m." + _ITYPES[dtype])
+    a, b = m.ImageParam(t, 2, "a"), m.ImageParam(t, 2, "b")
+    x, y = m.Var("x"), m.Var("y")
+    f = m.Func("f")
+    f[x, y] = fn(m, a, b, x, y)
+    if tile is not None:
+        xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+        f.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+    if m is ht:
+        a.set(torch.from_numpy(a_np).to(device))
+        b.set(torch.from_numpy(b_np).to(device))
+    else:
+        a.set(a_np)
+        b.set(b_np)
+    return m.Pipeline(f)
+
+
+def jax_intrin(case):
+    """The JAX package's whole-array values of a case."""
+    a, b = intrin_inputs(INTRIN_CASES[case][1])
+    return np.asarray(intrin_pipeline(hl, case, a, b).realize([IW, IH])
+                      .to_numpy())
+
+
+@pytest.mark.parametrize("case", sorted(INTRIN_CASES))
+def test_saturating_cast_and_absd_match_eval_jnp(case):
+    a, b = intrin_inputs(INTRIN_CASES[case][1])
+    ref = jax_intrin(case)
+    got = intrin_pipeline(ht, case, a, b).realize(
+        [IW, IH], device="cpu").to_numpy()
+    assert got.dtype == ref.dtype, (got.dtype, ref.dtype)
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_saturating_cast_edges_by_hand():
+    """The reference's rule spelled out: NaN gives 0, the limits hold, and
+    f32 2^31 saturates to the i32 maximum."""
+    from halide_tpu_torch.eval_torch import saturating_cast
+    v = torch.tensor([np.nan, -1.0, 0.5, 254.9, 255.5, 1e10, 2147483648.0,
+                      -np.inf])
+    u8 = saturating_cast(v, ht.Float(32), ht.UInt(8))
+    assert u8.tolist() == [0, 0, 0, 254, 255, 255, 255, 0]
+    i32 = saturating_cast(v, ht.Float(32), ht.Int(32))
+    assert i32.tolist() == [0, -1, 0, 254, 255, (1 << 31) - 1, (1 << 31) - 1,
+                            -(1 << 31)]
+    w = torch.tensor([65535, 32768, 32767, 0], dtype=torch.int32)  # u16
+    assert saturating_cast(w, ht.UInt(16), ht.Int(16)).tolist() == \
+        [32767, 32767, 32767, 0]

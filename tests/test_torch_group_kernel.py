@@ -4,10 +4,17 @@ interpret mode) and against whole-array eval_torch, and the emitted CUDA
 source compiled with the host C++ compiler against the plain version. The
 kernel itself runs only on the card (the test marked gpu).
 
+The band walk (a block walking consecutive sub-tiles down full-width row
+bands, staging the next one's windows ahead) is decided as the JAX planner
+decides its band split, and the host build runs the same walk, so the
+walk's index arithmetic and its one and two window buffers are compared
+here; the kernel's own staging ahead (cp.async) only on the card.
+
 blur is u16 and compares bit for bit. linear_blur is f32: the plain version
 and whole-array eval_torch do the same f32 operations in the same order and
 compare bit for bit; against the JAX package and against the host-compiled
 source (another libm's powf) it allows the app's tolerance, 1e-4."""
+import copy
 import ctypes
 import shutil
 import subprocess
@@ -56,6 +63,24 @@ def _jax_realize(name, data, monkeypatch, tile=None, **kw):
     app = get(name)(**kw)
     app.bind(data)
     return np.asarray(app.realize().to_numpy())
+
+
+def _host_build(plan, tmp_path):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the emitted source")
+    cu = tmp_path / f"{plan.symbol}.cu"
+    so = tmp_path / f"{plan.symbol}.so"
+    cu.write_text(plan.source)
+    r = subprocess.run(
+        [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
+         "-ffp-contract=off", "-I", str(gk._CSRC), "-o", str(so), str(cu)],
+        capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    fn = getattr(ctypes.CDLL(str(so)), f"host_run_{plan.symbol}")
+    fn.argtypes = plan.arg_types
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @pytest.mark.parametrize("w,h,tile", BLUR_TILES)
@@ -108,22 +133,9 @@ def test_plan_record_and_sub_tiles():
     ("linear_blur", dict(width=64, height=48)),
 ])
 def test_emitted_source_on_host_matches_plain_version(name, kw, tmp_path):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler (g++) to build the emitted source")
     _app, _data, out, (plan, inputs, rmins, _p, _r) = _group_call(name,
                                                                    **kw)
-    cu = tmp_path / f"{plan.symbol}.cu"
-    so = tmp_path / f"{plan.symbol}.so"
-    cu.write_text(plan.source)
-    r = subprocess.run(
-        [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-         "-ffp-contract=off", "-I", str(gk._CSRC), "-o", str(so), str(cu)],
-        capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
-    fn = getattr(ctypes.CDLL(str(so)), f"host_run_{plan.symbol}")
-    fn.argtypes = plan.arg_types
-    fn.restype = ctypes.c_int
+    fn = _host_build(plan, tmp_path)
     host = torch.empty(tuple(reversed(plan.extents)),
                        dtype=torch.from_numpy(out).dtype)
     assert fn(*gk.launch_args(plan, [a.contiguous() for a in inputs],
@@ -319,22 +331,9 @@ def test_div_window_origins_are_floor_divided_with_slack():
     DIV_CASES[3], DIV_CASES[6], DIV_CASES[7], DIV_CASES[8], DIV_CASES[9]])
 def test_div_window_source_on_host_matches_plain_version(form, dtype, w, h,
                                                          tile, tmp_path):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no host C++ compiler (g++) to build the emitted source")
     _a, pipe, out = _div_realize(form, dtype, w, h, tile)
     plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
-    cu = tmp_path / f"{plan.symbol}.cu"
-    so = tmp_path / f"{plan.symbol}.so"
-    cu.write_text(plan.source)
-    r = subprocess.run(
-        [gxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
-         "-ffp-contract=off", "-I", str(gk._CSRC), "-o", str(so), str(cu)],
-        capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0, r.stderr
-    fn = getattr(ctypes.CDLL(str(so)), f"host_run_{plan.symbol}")
-    fn.argtypes = plan.arg_types
-    fn.restype = ctypes.c_int
+    fn = _host_build(plan, tmp_path)
     host = torch.empty(tuple(reversed(plan.extents)),
                        dtype=torch.from_numpy(out).dtype)
     assert fn(*gk.launch_args(plan, [t.contiguous() for t in inputs],
@@ -392,3 +391,352 @@ def test_div_window_kernel_matches_plain_version_on_the_card(form, dtype, w,
     tol = 1e-6 if dtype == "float32" else 0
     err = (out.data.double() - plain.double()).abs().max().item()
     assert err <= tol
+
+
+# ---------------------------------------------------------------------------
+# the band walk (the counterpart of the JAX planner's band split, gated there
+# by the probe `_bandsplit_ok`): the shapes of tests/test_pallas.py's band-
+# split tests, and negative cases. A 3-tap box blur in u16, the output tiled
+# in row bands of 128 and the x pass computed at the tiles.
+# ---------------------------------------------------------------------------
+
+# name -> (W, H, tile, parallel var, store_root, the JAX decision)
+BAND_CASES = {
+    "bands8": (256, 1026, (254, 128), "yo", False, True),
+    "ragged_tail": (256, 1536, (254, 128), "yo", False, True),
+    "store_root": (256, 1026, (254, 128), "yo", True, True),
+    "parallel_xo": (256, 1026, (254, 128), "xo", False, False),
+    "bands3": (256, 386, (254, 128), "yo", False, False),
+    # two tiles across: neither walks. (At a ragged width the JAX package
+    # partitions the output and band-splits its one-tile-wide interior,
+    # where the port shifts the last tile inwards and has two tiles.)
+    "narrow_tile": (258, 1026, (128, 128), "yo", False, False),
+}
+
+
+def _band_input(case, dtype="uint16"):
+    """u16 walking windows are staged plainly; i32 ones by cp.async ahead
+    of the compute where a walk has two window buffers."""
+    W, H = BAND_CASES[case][:2]
+    return np.random.default_rng(21).integers(0, 1 << 14, (H, W)) \
+        .astype(dtype)
+
+
+def _band_pipeline(m, case, img, device="cpu"):
+    W, H, (tx, ty), par, store_root, _ = BAND_CASES[case]
+    x, y = m.Var("x"), m.Var("y")
+    xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+    inp = m.Buffer(torch.from_numpy(img).to(device) if m is ht else img)
+    bx, by = m.Func("band_bx"), m.Func("band_by")
+    bx[x, y] = (inp[x, y] + inp[x + 1, y] + inp[x + 2, y]) / 3
+    by[x, y] = (bx[x, y] + bx[x, y + 1] + bx[x, y + 2]) / 3
+    by.tile(x, y, xo, yo, xi, yi, tx, ty).vectorize(xi).parallel(
+        {"xo": xo, "yo": yo}[par])
+    bx.compute_at(by, xo)
+    if store_root:
+        bx.store_root()
+    return by, [W - 2, H - 2]
+
+
+def _band_golden(img):
+    ref = (img[:, :-2] + img[:, 1:-1] + img[:, 2:]) // 3
+    return (ref[:-2] + ref[1:-1] + ref[2:]) // 3
+
+
+def _band_realize(case, dtype="uint16"):
+    img = _band_input(case, dtype)
+    by, sizes = _band_pipeline(ht, case, img)
+    pipe = ht.Pipeline(by)
+    before = sum(gk.rejects.values())
+    gk.last_plan = None
+    out = pipe.realize(sizes, device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    return img, pipe, out
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_walk_decision_matches_jax_band_split(case):
+    """The port walks bands exactly where the JAX planner band-splits; the
+    record names the walk, and the values equal the JAX package's and the
+    golden."""
+    from halide_tpu.ops import pallas_group as pg
+    import halide_tpu as hl
+    img, _pipe, out = _band_realize(case)
+    rec = gk.last_plan
+    jby, sizes = _band_pipeline(hl, case, img)
+    pg._last_plan = None
+    ref = np.asarray(jby.realize(sizes, jit=False).to_numpy())
+    assert pg._last_plan is not None
+    assert rec["band_walk"] == pg._last_plan["band_split"] \
+        == BAND_CASES[case][5], (rec, pg._last_plan)
+    if not rec["band_walk"]:
+        assert rec["walk"] == 1 and rec["n_buf"] == 1
+    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, _band_golden(img))
+
+
+def test_band_walk_plan_fields():
+    """A band-walk plan is planned to walk one sub-tile a block; set to walk
+    further, its grid has a row of blocks per walk, and the walking window
+    is counted twice in the shared memory of a two-buffer walk, which only
+    windows staged by cp.async (4 and 8 bytes) may take."""
+    for dtype, prefetch in (("uint16", "none"), ("int32", "cp.async")):
+        _img, pipe, _out = _band_realize("bands8", dtype)
+        plan = gk.group_call(pipe, "cpu")[0]
+        assert plan.band_walk and plan.walk == 1 and plan.n_buf == 1
+        (win,) = plan.windows
+        assert gk._walks(win) and plan.prefetch == prefetch
+        p2 = copy.copy(plan)
+        p2.walk = 3
+        assert p2.shape()[:2] == (3, 1)
+        assert p2.record()["prefetch"] == "none"
+        p2.n_buf = 2
+        if prefetch == "none":
+            with pytest.raises(ValueError, match="cp.async"):
+                p2.shape()
+            continue
+        walk, n_buf, moff, smem, grid = p2.shape()
+        assert (walk, n_buf) == (3, 2)
+        assert moff == plan.fixed_bytes + 2 * plan.walk_bytes
+        assert smem == moff + plan.member_bytes
+        assert grid == (plan.ntx * plan.nsx, -(-plan.nty * plan.nsy // 3))
+        assert p2.record()["prefetch"] == "cp.async"
+        off = copy.copy(p2)
+        off.band_walk = False
+        assert off.shape()[:2] == (1, 1)
+        assert off.record()["prefetch"] == "none"
+
+
+def _walks_of(plan):
+    """The plan as planned, and with walks of 1, 3 and 5 sub-tiles (3 and 5
+    leave a short last walk) with one window buffer, and two where its
+    walking windows are staged ahead by cp.async."""
+    out = [plan]
+    for walk in (1, 3, 5):
+        for n_buf in (1, 2) if plan.prefetch == "cp.async" else (1,):
+            p = copy.copy(plan)
+            p.band_walk, p.walk, p.n_buf = True, walk, n_buf
+            out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "int32"])
+@pytest.mark.parametrize("case", ["bands8", "ragged_tail", "store_root",
+                                  "narrow_tile"])
+def test_band_walk_source_on_host_matches_golden(case, dtype, tmp_path):
+    """The g++ build of the emitted walk (the same blocks, walk and staging
+    as the card's, one thread a block; cp.async copies at once there) and
+    the plain version equal the golden bit for bit, at every walk length
+    and buffer count."""
+    img, pipe, out = _band_realize(case, dtype)
+    gold = _band_golden(img)
+    np.testing.assert_array_equal(out, gold)
+    plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
+    assert plan.record()["band_walk"] == BAND_CASES[case][5]
+    assert plan.prefetch == ("cp.async" if dtype == "int32" else "none")
+    assert ("hl_stage_window_async" in plan.source) == (dtype == "int32")
+    fn = _host_build(plan, tmp_path)
+    for p in _walks_of(plan):
+        host = torch.zeros(tuple(reversed(p.extents)),
+                           dtype=getattr(torch, dtype))
+        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
+        np.testing.assert_array_equal(host.numpy(), gold, err_msg=str(
+            p.record()))
+        plain = gk.run_plain(p, inputs, rmins, params, torch.device("cpu"))
+        np.testing.assert_array_equal(plain.numpy(), gold)
+
+
+def test_band_walk_cp_async_route_on_host(tmp_path):
+    """linear_blur in 4 full-width bands is a band walk; its f32 window is
+    staged ahead by cp.async in a two-buffer walk, which the host build
+    copies at once."""
+    app, data, out, (plan, inputs, rmins, _p, _r) = _group_call(
+        "linear_blur", width=64, height=1024)
+    rec = plan.record()
+    assert rec["band_walk"] and rec["tile"] == (64, 256)
+    assert (rec["walk"], rec["n_buf"], rec["prefetch"]) == (1, 1, "none")
+    assert plan.prefetch == "cp.async"
+    np.testing.assert_allclose(out, app.reference(**data), rtol=1e-4,
+                               atol=1e-4)
+    fn = _host_build(plan, tmp_path)
+    for p in _walks_of(plan):
+        host = torch.zeros(tuple(reversed(p.extents)), dtype=torch.float32)
+        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
+        np.testing.assert_allclose(host.numpy(), out, rtol=1e-4, atol=1e-4)
+
+
+def test_plain_version_over_some_sub_tile_rows():
+    """run_plain over some sub-tile rows (the chip check holds the main
+    path's full-size launches against it so) equals the whole plain
+    version on the output rows that `plain_rows` names, the shifted-inwards
+    last rows included."""
+    _img, pipe, out = _band_realize("ragged_tail")
+    plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
+    n = plan.nty * plan.nsy
+    rows = [0, 1, n - 2, n - 1]
+    ys = gk.plain_rows(plan, rows)
+    assert ys[0] == 0 and ys[-1] == plan.extents[plan.yi] - 1
+    assert len(ys) == 4 * plan.sy < plan.extents[plan.yi]
+    part = gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"),
+                        rows)
+    np.testing.assert_array_equal(part.numpy()[ys], out[ys])
+
+
+def test_member_buffers_share_shared_memory_by_liveness():
+    """A chain of members: each buffer is free after the phase of its last
+    reader, so the member region holds two live buffers, not the chain."""
+    x, y = ht.Var("x"), ht.Var("y")
+    xo, yo, xi, yi = ht.Var("xo"), ht.Var("yo"), ht.Var("xi"), ht.Var("yi")
+    inp = ht.ImageParam(ht.Int(32), 2, "inp")
+    chain = [ht.repeat_edge(inp)]
+    for k in range(5):
+        f = ht.Func(f"m{k}")
+        f[x, y] = chain[-1][x - 1, y] + chain[-1][x + 1, y + 1] * 2
+        chain.append(f)
+    out = ht.Func("out")
+    out[x, y] = chain[-1][x, y] - chain[-2][x, y]
+    out.tile(x, y, xo, yo, xi, yi, 32, 16)
+    for f in chain[1:]:
+        f.compute_at(out, xo)
+    a = np.random.default_rng(3).integers(-99, 99, (40, 64)).astype(np.int32)
+    inp.set(torch.from_numpy(a))
+    pipe = ht.Pipeline(out)
+    got = pipe.realize([64, 40], device="cpu").to_numpy()
+    plan = gk.group_call(pipe, "cpu")[0]
+    sizes = [gk._aligned(m.nbytes()) for m in plan.members]
+    assert plan.member_bytes < sum(sizes)
+    # m3 is read by m4 and by the output: it stays live to the last phase
+    live = {m.name: (m.smem_off, m.smem_off + s)
+            for m, s in zip(plan.members, sizes)}
+    for a_, b_ in (("m3", "m4"), ("m0", "m1"), ("m1", "m2")):
+        (lo1, hi1), (lo2, hi2) = live[a_], live[b_]
+        assert hi1 <= lo2 or hi2 <= lo1, (a_, b_, live)
+    np.testing.assert_array_equal(got, _chain_golden(a))
+
+
+def _chain_golden(a):
+    """numpy of the member chain above, over the output box [0, 64) x
+    [0, 40) with the input edge-clamped."""
+    H, W = a.shape
+    pad = 8
+    cur = np.pad(a.astype(np.int64), pad, mode="edge")     # origin -pad
+    vals = [cur]
+    for _k in range(5):
+        prev = vals[-1]
+        nxt = np.zeros_like(prev)
+        nxt[:-1, 1:-1] = prev[:-1, :-2] + prev[1:, 2:] * 2
+        vals.append(nxt)
+    o = vals[-1] - vals[-2]
+    return o[pad:pad + H, pad:pad + W].astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["uint16", "int32"])
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_walk_kernel_matches_plain_version_on_the_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    img = _band_input(case, dtype)
+    by, sizes = _band_pipeline(ht, case, img, "cuda")
+    pipe = ht.Pipeline(by)
+    launches = gk.launches
+    out = pipe.realize(sizes)
+    assert gk.launches == launches + 1
+    assert gk.last_plan["band_walk"] == BAND_CASES[case][5]
+    plan, inputs, rmins, params, _realz = gk.group_call(pipe)
+    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, plain)
+    for p in _walks_of(plan):
+        assert torch.equal(gk.launch(p, inputs, rmins), plain), p.record()
+    np.testing.assert_array_equal(out.to_numpy(), _band_golden(img))
+
+
+# ---------------------------------------------------------------------------
+# saturating_cast and absd in the emitted source, and camera_pipe's tone
+# curve over all of its 1,024 inputs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["sat_f32_u8", "sat_f32_i16", "sat_f32_i32",
+                                  "sat_i32_u8", "sat_u16_i16", "absd_i16",
+                                  "absd_i8", "absd_i16_in_u16_sum"])
+def test_intrinsics_source_on_host_match_eval_jnp(case, tmp_path):
+    """The g++ build of the group's source (hl_saturating_cast, hl_absd)
+    and the plain version equal the JAX package's values bit for bit, NaN
+    and the limits included."""
+    from test_torch_eval import (INTRIN_CASES, IH, IW, intrin_inputs,
+                                 intrin_pipeline, jax_intrin)
+    a, b = intrin_inputs(INTRIN_CASES[case][1])
+    ref = jax_intrin(case)
+    pipe = intrin_pipeline(ht, case, a, b, tile=(8, 4))
+    before = sum(gk.rejects.values())
+    got = pipe.realize([IW, IH], device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    np.testing.assert_array_equal(got, ref)
+    plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros(tuple(reversed(plan.extents)),
+                       dtype=torch.from_numpy(got).dtype)
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), ref)
+
+
+def _curve_pipeline(device="cpu"):
+    """lut[x, y] = curve[x + 32 y] over 32 x 32: camera_pipe's inline tone
+    curve at every raw value, tiled so that it goes through the group
+    kernel (no members, no windows)."""
+    from halide_tpu_torch.apps import camera_pipe
+    x, y = ht.Var("x"), ht.Var("y")
+    xo, yo, xi, yi = ht.Var("xo"), ht.Var("yo"), ht.Var("xi"), ht.Var("yi")
+    curve = camera_pipe.tone_curve(x)
+    lut = ht.Func("lut")
+    lut[x, y] = curve[x + 32 * y]
+    lut.tile(x, y, xo, yo, xi, yi, 16, 8)
+    return ht.Pipeline(lut), camera_pipe.curve_lut().reshape(32, 32)
+
+
+def test_tone_curve_source_on_host_matches_the_lut(tmp_path):
+    """All 1,024 values of the tone curve (pow(x, 0.5), rounded to u8)
+    through the g++ build of the group's source and through its plain
+    version equal the golden's numpy LUT."""
+    pipe, want = _curve_pipeline()
+    before = sum(gk.rejects.values())
+    got = pipe.realize([32, 32], device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    np.testing.assert_array_equal(got, want)
+    plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
+    assert plan.windows == [] and plan.members == []
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros((32, 32), dtype=torch.uint8)
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), want)
+
+
+@pytest.mark.gpu
+def test_tone_curve_kernel_matches_the_lut_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    pipe, want = _curve_pipeline("cuda")
+    launches = gk.launches
+    got = pipe.realize([32, 32])
+    assert gk.launches == launches + 1
+    np.testing.assert_array_equal(got.to_numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sat_f32_u8", "sat_f32_i32", "sat_i32_u8",
+                                  "sat_u16_i16", "absd_i16", "absd_i8"])
+def test_intrinsics_kernel_match_plain_version_on_the_card(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_eval import INTRIN_CASES, IH, IW, intrin_inputs, \
+        intrin_pipeline
+    a, b = intrin_inputs(INTRIN_CASES[case][1])
+    pipe = intrin_pipeline(ht, case, a, b, tile=(8, 4), device="cuda")
+    launches = gk.launches
+    out = pipe.realize([IW, IH])
+    assert gk.launches == launches + 1
+    plan, inputs, rmins, params, _realz = gk.group_call(pipe)
+    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, plain)
