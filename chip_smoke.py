@@ -20,17 +20,20 @@ Then it drives the port's main paths through `App.bind` /
   256x64;
 - stencil_chain (1536x2560 u16, 32 stencils, the kernel branch): four K1
   launches, one per group of 8 stencils; the last is a band walk, the
-  others span two tiles across;
+  others are wider than their tile (1632, 1600, 1568 at the tile 1536);
 - camera_pipe (2560x1920 u8 out, the kernel branch) at the full-width tile
   2560x128 (a band walk) and at the tile 256x64;
 - a 1536x2560 f32 tile reading a producer at (x / 8, y / 8): K1's d = 8
   window, the counterpart of the JAX package's 8-fold repeat;
-- iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a;
+- iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a (also
+  timed at both segment lengths the kernel takes);
 - hist (1536x2560x3 u8): one row histogram, K3;
 - a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
 
 Each kernel's launch count is set to 0 just before its path's realize and
-must have the expected value just after (for K1, with no rejected plan).
+must have the expected value just after (for K1, with no rejected plan, and
+a grid of cdiv(extent, sx) x cdiv(extent_y, sy) sub-tiles: no output
+computed twice).
 Each kernel is called again on the arguments the main path gave it and held
 against its plain PyTorch version (for stencil_chain and camera_pipe on the
 output rows of the first two and the last two bands of each launch, where
@@ -137,45 +140,10 @@ def count_ops(plan):
     read's indices is not counted unless the index depends on data; an
     operation is counted by its operands' type (a float comparison is an
     f32 operation)."""
-    from halide_tpu_torch import expr as E
-    from halide_tpu_torch.visitors import walk
-    free = {"param", "buffer_min", "buffer_extent", "likely", "strict_float"}
-
-    def reads_data(e):
-        hit = [False]
-
-        def fn(c):
-            hit[0] = hit[0] or isinstance(c, E.Call)
-        walk(e, fn)
-        return hit[0]
+    from halide_tpu_torch.ops import group_kernel as gk
 
     def ops(v):
-        n, seen = [0, 0], set()
-
-        def visit(e):
-            if id(e) in seen:
-                return
-            seen.add(id(e))
-            if isinstance(e, E.Call):
-                for a in e.args:
-                    if reads_data(a):
-                        visit(a)
-                return
-            t = None
-            if isinstance(e, E.Binary):
-                t = e.a.dtype
-            elif isinstance(e, E.Select):
-                t = e.true_value.dtype
-            elif isinstance(e, E.Intrin) and e.name not in free:
-                t = e.args[0].dtype if e.args else e.dtype
-            elif isinstance(e, E.Not):
-                t = e.dtype
-            if t is not None:
-                n[0 if t.is_float() else 1] += 1
-            for c in e.children():
-                visit(c)
-        visit(v)
-        return np.array(n, np.int64)
+        return np.array(gk.point_ops(v), np.int64)
     per_xy = plan.extents[plan.xi] * (
         plan.extents[plan.yi] if plan.yi is not None else 1)
     total = ops(plan.value) * int(np.prod(plan.extents))
@@ -205,7 +173,7 @@ def window_bytes(plan, inputs, rmins):
     return total
 
 
-PORT_KERNELS = ("group_", "scan_lines", "rowhist_blocks")
+PORT_KERNELS = ("group_", "scan_segments", "rowhist_blocks")
 
 
 def breakdown(app):
@@ -346,13 +314,24 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
     got = [c[0].band_walk for c in calls]
     if got != list(walks):
         raise SystemExit(f"{app.name}: band walks {got}, expected {walks}")
+    for plan, *_rest in calls:
+        grid = plan.record()["grid"]
+        want = (gk._cdiv(plan.extents[plan.xi], plan.sx),
+                gk._cdiv(plan.extents[plan.yi], plan.sy)
+                if plan.yi is not None else 1)
+        if grid != want:
+            raise SystemExit(f"{app.name}: {plan.f.name}'s grid {grid} is not "
+                             f"the {want} sub-tiles of its extent")
+    grids = [(c[0].f.name, list(c[0].extents), c[0].record()["grid"])
+             for c in calls]
+    say(f"every group's grid is cdiv(extent, sub-tile): {grids}")
     err = plain_ms = 0.0
     for plan, inputs, rmins, params, _realz in calls:
         kern = gk.launch(plan, inputs, rmins)
         rows, where = None, "every row"
         if bands is not None:
-            n = plan.nty * plan.nsy
-            k = bands * plan.nsy
+            n = plan.ncy
+            k = gk._cdiv(bands * plan.ty, plan.sy)
             rows = set(range(min(k, n))) | set(range(max(n - k, 0), n))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -370,7 +349,7 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
             last = gk.plain_rows(plan, range(max(n - k, 0), n))
             where = (f"output rows {first[0]}-{first[-1]} and {last[0]}-"
                      f"{last[-1]} of {plan.extents[plan.yi]} (the first and "
-                     f"last {bands} of {plan.nty} bands)")
+                     f"last {bands} of {plan.nty} bands' height)")
         diff = (kern.double() - plain.double()).abs()
         e = diff.max().item()
         bad = (diff > tol + rtol * plain.double().abs()).double().mean() \
@@ -514,7 +493,8 @@ def main():
         for f in jobs:
             f.result()
     for key, secs in build.builds:
-        say(f"nvcc build {key}: {secs:.1f} s")
+        say(f"nvcc build {key}: {secs:.1f} s; ptxas: "
+            f"{' | '.join(build.ptxas.get(key, []))}")
 
     phase("blur")
     res_b = run_app(app_b, data[id(app_b)],
@@ -654,9 +634,10 @@ def main():
             f32_ops, int_ops = f32_ops + f, int_ops + i
             rec = plan.record()
             per.append({k: rec[k] for k in ("func", "tile", "sub_tile",
-                                            "grid", "smem_bytes",
-                                            "band_walk", "walk", "n_buf",
-                                            "prefetch")} | {"ms": t})
+                                            "grid", "smem_bytes", "threads",
+                                            "min_blocks", "band_walk",
+                                            "walk", "n_buf", "prefetch")}
+                       | {"ms": t})
         r_ms = event_ms(app.realize, 20, flush)
         row = kernel_row(
             name, "halide_tpu_torch/ops/group_kernel.py", replaces,
@@ -731,11 +712,25 @@ def main():
 
     k_ms, p_ms, nbytes, ops = scan_times(calls_i)
     r_ms = event_ms(app_i.realize, 20, flush)
+    # K2a's segment length: the same four calls at 16 and 32 elements a
+    # thread (segments of 128 and 256), in turns (16, 32, 32, 16)
+    by_sub = {16: [], 32: []}
+    for sub in (16, 32, 32, 16):
+        t_sub = 0.0
+        for (out, b, init, axis, bwd), kw in calls_i:
+            o = torch.empty_like(out)
+            t_sub += event_ms(lambda: sk.launch(o, b, init, axis, bwd,
+                                                sub=sub, **kw), 30, flush,
+                              hold=True)
+        by_sub[sub].append(t_sub)
+    say(f"K2a x4 at 16 and 32 elements a thread: {by_sub} ms (device; "
+        "16, 32, 32, 16; planned: 32 along the contiguous axis, 16 along a "
+        "strided one)")
     kernels.append(kernel_row(
         "K2a scan, constant coefficient (iir_blur, per realize)",
         "halide_tpu_torch/ops/csrc/scan_kernel.cu",
         "halide_tpu/ops/pallas_scan.py:39", n_i["const"], err_i, k_ms, p_ms,
-        nbytes, (ops, 0), None, realize_ms=r_ms,
+        nbytes, (ops, 0), None, realize_ms=r_ms, ms_by_sub=by_sub,
         library_note="no single torch call computes a recurrence with "
                      "a != 1 (cumsum is a = 1)"))
     say(f"iir_blur on {card}: K2a x4 {k_ms:.4f} ms (device), plain "

@@ -22,9 +22,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_TIMEOUT_S = 180
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v"]
 
 builds: List[Tuple[str, float]] = []       # (library key, nvcc seconds)
+# library key -> ptxas's report of each kernel: registers, shared memory,
+# stack and spills (`-Xptxas -v`, kept beside the library)
+ptxas: Dict[str, List[str]] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -56,8 +60,13 @@ def load(key: str, cu: Path) -> ctypes.CDLL:
         if r.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed on {cu} (exit {r.returncode}):\n{r.stderr}")
+        so.with_suffix(".ptxas").write_text("\n".join(
+            ln.split(":", 1)[-1].strip() for ln in r.stderr.splitlines()
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln))
         os.replace(tmp, so)
         builds.append((key, time.time() - t0))
+    if key not in ptxas and so.with_suffix(".ptxas").exists():
+        ptxas[key] = so.with_suffix(".ptxas").read_text().splitlines()
     try:
         lib = ctypes.CDLL(str(so))
     except OSError as ex:

@@ -8,12 +8,12 @@
 //     (u16/u32 included), computed through a wider unsigned type so that
 //     no signed overflow (undefined in C++) can occur;
 //   - Halide casts (float -> int truncates toward zero, then wraps);
-//   - the shift-inwards origin of the last tile (Schedule.h ShiftInwards);
-//   - staging of a halo'd window of an input into shared memory, edge-
-//     replicated where the window leaves the realized region, either with
-//     plain loads or, for the band walk's next sub-tile, by cp.async ahead
-//     of the compute (4- and 8-byte elements: cp.async moves 4, 8 or 16
-//     bytes).
+//   - the shift-inwards origin of the last sub-tile (Schedule.h
+//     ShiftInwards);
+//   - staging of a halo'd window of an input into shared memory: where the
+//     window lies inside the realized region, row by row in 16-byte pieces
+//     by cp.async (8 or 4 where the strides allow no more; each row's head
+//     and tail by element), else element by element, edge-replicated.
 //
 // Every helper is __host__ __device__ so that the emitted point functions
 // also compile with a host C++ compiler, where the CUDA qualifiers below
@@ -22,6 +22,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -222,8 +223,8 @@ HL_FN To hl_saturating_cast(From v) {
 
 // --- tiling -------------------------------------------------------------------
 
-// Origin of tile `t` of size `tile` over [mn, mn + ext): the last tile is
-// shifted inwards to end at the extent, so that no read leaves the
+// Origin of sub-tile `t` of size `tile` over [mn, mn + ext): the last one
+// is shifted inwards to end at the extent, so that no read leaves the
 // required region (reference: Schedule.h TailStrategy::ShiftInwards).
 HL_FN int hl_shift_inwards(int mn, int ext, int tile, int t) {
   const int o = mn + t * tile;
@@ -237,12 +238,14 @@ HL_FN int hl_clampi(int v, int lo, int hi) {
 
 // A window of an input: the realized region in device memory it is read
 // from (element strides, realized mins and sizes per pipeline dim).
+// `unit` is set by the launcher (hl_copy_unit): 0 where dim 0 is strided.
 template <int ND>
 struct HlInput {
   const void* ptr;
   long long stride[ND];
   int rmin[ND];
   int rsize[ND];
+  int unit;
 };
 
 // The source element of window element i (coords(i) over `ext`, dim 0
@@ -261,20 +264,7 @@ HL_FN const T* hl_window_src(const HlInput<ND>& in, const int* lo,
   return (const T*)in.ptr + off;
 }
 
-// Stage window[i] = input[clamp(lo + coords(i))] for i in [first, n) with
-// step `step`; coords(i) walks `ext` with dim 0 fastest. Coordinates
-// outside the realized region replicate its edge (repeat_edge semantics:
-// the clamps stripped from the point expressions are restored here).
-template <typename T, int ND>
-HL_FN void hl_stage_window(T* window, const HlInput<ND>& in, const int* lo,
-                           const int* ext, int first, int step) {
-  int n = 1;
-  for (int d = 0; d < ND; ++d) n *= ext[d];
-  for (int i = first; i < n; i += step)
-    window[i] = *hl_window_src<T, ND>(in, lo, ext, i);
-}
-
-// --- the band walk's staging of the next sub-tile's windows ------------------
+// --- staging ------------------------------------------------------------------
 
 // A block barrier on the card; the host build runs one thread a block.
 HL_FN void hl_sync() {
@@ -283,34 +273,131 @@ HL_FN void hl_sync() {
 #endif
 }
 
-// cp.async route (4- and 8-byte elements): each element is copied into
-// shared memory without passing through registers, and the thread goes on
-// to compute; hl_async_wait() then waits for its own copies (the barrier
-// after it makes every thread's visible). The host build copies at once.
-template <typename T, int ND>
-HL_FN void hl_stage_window_async(T* window, const HlInput<ND>& in,
-                                 const int* lo, const int* ext, int first,
-                                 int step) {
-  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "cp.async moves 4 or 8");
-  int n = 1;
-  for (int d = 0; d < ND; ++d) n *= ext[d];
-  for (int i = first; i < n; i += step) {
-    const T* src = hl_window_src<T, ND>(in, lo, ext, i);
+// Copy `n` bytes (1, 2, 4, 8 or 16), `dst` and `src` both aligned to n:
+// 4, 8 and 16 by cp.async on the card (in flight until hl_async_wait(); the
+// thread goes on meanwhile), 1 and 2 by a load and a store. The host build
+// copies at once.
+HL_FN void hl_copy_piece(void* dst, const void* src, int n) {
 #ifdef __CUDA_ARCH__
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(window + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-                 "l"(src), "n"((int)sizeof(T)));
-#else
-    window[i] = *src;
-#endif
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  switch (n) {
+    case 16:
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src));
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                   "l"(src));
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                   "l"(src));
+      break;
+    case 2:
+      *(uint16_t*)dst = *(const uint16_t*)src;
+      break;
+    default:
+      *(uint8_t*)dst = *(const uint8_t*)src;
   }
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::);
+#else
+  memcpy(dst, src, (size_t)n);
 #endif
 }
 
+// Wait for this thread's cp.async copies (the barrier after it makes every
+// thread's visible).
 HL_FN void hl_async_wait() {
 #ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
+}
+
+// The copy unit of an input: the widest of 16, 8 and 4 bytes (at least the
+// element) that divides every row stride (dims 1..ND-1) in bytes, so that
+// all rows of a window start at one phase modulo the unit; 0 where dim 0
+// is strided (no rows to copy). Computed once, by the launcher.
+template <typename T, int ND>
+HL_FN int hl_copy_unit(const HlInput<ND>& in) {
+  if (in.stride[0] != 1) return 0;
+  int u = 16;
+  for (int d = 1; d < ND; ++d) {
+    const long long b = in.stride[d] * (long long)sizeof(T);
+    while (u > (int)sizeof(T) && b % u != 0) u >>= 1;
+  }
+  return u > (int)sizeof(T) ? u : (int)sizeof(T);
+}
+
+// Where a window over [lo, lo + ext) lies inside the realized region and
+// dim 0 has unit stride: the phase of its first element modulo the copy
+// unit, in elements (>= 0). The window's shared-memory buffer starts that
+// many elements after its 16-byte-aligned base, so each row sits at its
+// source's phase. Elsewhere -1: the block takes the edge path.
+template <typename T, int ND>
+HL_FN int hl_window_phase(const HlInput<ND>& in, const int* lo,
+                          const int* ext) {
+  if (in.unit == 0) return -1;
+  long long off = 0;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    if (lo[d] < in.rmin[d] || lo[d] + ext[d] > in.rmin[d] + in.rsize[d])
+      return -1;
+    off += (long long)(lo[d] - in.rmin[d]) * in.stride[d];
+  }
+  const uintptr_t a = (uintptr_t)((const T*)in.ptr + off);
+  return (int)((a & (uintptr_t)(in.unit - 1)) / sizeof(T));
+}
+
+// Stage window[r * pitch + c0] = input[lo + coords] for every element of a
+// window over `ext`, threads tid, tid + nth, ... sharing the work. With
+// phase >= 0 (the window lies inside the region; `window` is the buffer's
+// 16-byte-aligned base plus the phase) each row is cut at the 16-byte
+// boundaries of shared memory; a thread takes one such chunk of a row and
+// copies it in pieces of the copy unit, by element where a piece runs past
+// the row's head or tail. With phase -1 each element is gathered with its
+// coordinates clamped into the region (repeat_edge semantics: the clamps
+// stripped from the point expressions are restored here), 4- and 8-byte
+// elements by cp.async too. `ext` and `pitch` are the emitted constants, so
+// the divisions below are by constants.
+template <typename T, int ND>
+HL_FN void hl_stage_window(T* window, int phase, int pitch,
+                           const HlInput<ND>& in, const int* lo,
+                           const int* ext, int tid, int nth) {
+  constexpr int es = (int)sizeof(T);
+  int rows = 1;
+#pragma unroll
+  for (int d = 1; d < ND; ++d) rows *= ext[d];
+  if (phase < 0) {
+    const int n = rows * ext[0];
+    for (int i = tid; i < n; i += nth)
+      hl_copy_piece(window + (long long)(i / ext[0]) * pitch + i % ext[0],
+                    hl_window_src<T, ND>(in, lo, ext, i), es);
+    return;
+  }
+  const int u = in.unit;
+  const int row_bytes = ext[0] * es;
+  const int head = phase * es;            // bytes before the row's first
+  const int nchunk = row_bytes / 16 + 2;  // 16-byte chunks a row can touch
+  for (int i = tid; i < rows * nchunk; i += nth) {
+    const int r = i / nchunk;
+    const int b0 = 16 * (i % nchunk) - head;   // the chunk, from the row
+    if (b0 >= row_bytes || b0 + 16 <= 0) continue;
+    long long off = lo[0] - in.rmin[0];
+    int rr = r;
+#pragma unroll
+    for (int d = 1; d < ND; ++d) {
+      off += (long long)(lo[d] + rr % ext[d] - in.rmin[d]) * in.stride[d];
+      rr /= ext[d];
+    }
+    const char* src = (const char*)((const T*)in.ptr + off);
+    char* dst = (char*)(window + (long long)r * pitch);
+    for (int b = b0; b < b0 + 16; b += u) {
+      if (b >= 0 && b + u <= row_bytes) {
+        hl_copy_piece(dst + b, src + b, u);
+      } else {
+        const int e1 = b + u < row_bytes ? b + u : row_bytes;
+        for (int e = b > 0 ? b : 0; e < e1; e += es)
+          hl_copy_piece(dst + e, src + e, es);
+      }
+    }
+  }
 }

@@ -9,49 +9,65 @@ Pallas kernel of the JAX package) for Hopper (sm_90a).
   read once and the output written once, at 3.35 TB/s on an H100 SXM; the
   producers live in shared memory and never touch device memory. The deep
   groups (stencil_chain's 8 stencils, camera_pipe's demosaic) are bound by
-  their f32/integer operations at 67 TFLOP/s.
-- Design: a CUDA block computes one sub-tile of a schedule tile. It stages
-  the halo'd window of each input into shared memory (edge-replicated where
-  the window leaves the realized region), evaluates each producer over the
-  sub-tile's footprint into shared memory (recomputing the halo that
-  neighbouring sub-tiles also compute), and writes the sub-tile. The last
-  tile's origin is shifted inwards (min(o, extent - tile)), so one build
-  serves the interior and the ragged edge; where the extent is below the
-  tile, the tile shrinks to the extent. The sub-tile is chosen so that the
-  shared memory a block needs stays within a budget (at most 227 KB, the
-  most a Hopper block can take); the members' buffers share it by
-  liveness, each free after the phase of its last reader.
+  their operations: f32 adds and multiplies issued alone (`-fmad=false`)
+  at 33.5 T/s, 32-bit integer operations at 16.75 T/s.
+- Design: a CUDA block computes one sub-tile of the output. The grid walks
+  the sub-tiles of the whole output extent, `cdiv(extent, sx)` columns by
+  `cdiv(extent_y, sy)` rows, and only the last column and the last row are
+  shifted inwards (min(o, extent - sub-tile)): no output is computed by two
+  blocks. The schedule's tile decides that the group exists, bounds the
+  sub-tile (sx <= tx, sy <= ty) and decides the band walk; it no longer
+  cuts the grid. A block stages the halo'd window of each input into
+  shared memory, evaluates each producer over the sub-tile's footprint
+  into shared memory (recomputing the halo that neighbouring sub-tiles
+  also compute), and writes the sub-tile. The members' buffers share
+  shared memory by liveness, each free after the phase of its last reader.
+- Planning for Hopper: the sub-tile (up to 256x128) and the threads of a
+  block (128, 256, 512 or 1024) are plan fields, chosen within the 227 KB a
+  block can take by a rule (`_plan_score`) that weighs the halo the
+  sub-tile recomputes (the operations over the members' footprints and
+  the window bytes staged, per output) and its phases' barriers against
+  the blocks and warps an SM keeps resident (from the shared memory and
+  the threads), with the wave quantization of the grid and the overlap of
+  its shifted last column and row. `__launch_bounds__(threads,
+  min_blocks)` grants `_REGS` registers a thread, so that the deep groups
+  do not spill. The rule's three constants are fitted to a sweep on the
+  card (`tools/k1_walk_sweep.py`, PERF.md).
+- Staging: a window that lies inside its input's realized region is
+  copied row by row, 16 bytes at a time by cp.async where the strides
+  allow (else 8 or 4), the head and tail of each row by element; its rows
+  sit in shared memory at the same phase modulo the copy unit as in device
+  memory, `pitch()` elements apart. Only a block whose window leaves the
+  region gathers it element by element, replicating the edge. The choice is
+  made per block, from its origin, in the kernel.
 - Band walk (the counterpart of the JAX planner's band split, gated there
   by the probe `_bandsplit_ok`, with its double-buffered window DMA): where
   one tile spans the whole x extent, there are at least 4 row bands and the
   row loop is parallel(), a plan is a band walk, and a block can walk
-  `walk` consecutive sub-tiles along y, across band boundaries. With two
-  window buffers it stages the next sub-tile's 4- and 8-byte windows by
-  cp.async while it computes the current one (narrower ones are staged
-  after the compute); with one it stages each sub-tile's windows before
-  computing it. Windows without a y dim are staged once per block. The
-  planner plans a walk of 1: every longer walk measured slower on the card
-  (`tools/k1_walk_sweep.py`, PERF.md) while the walk recomputes each
-  sub-tile's producers; `walk` and `n_buf` are plan fields that the chip
-  check and the sweep set. No TMA yet.
+  `walk` consecutive sub-tile rows along y. With two window buffers it
+  stages the next sub-tile's walking windows by the same copies while it
+  computes the current one. The planner plans a walk of 1: every longer
+  walk measured slower on the card (`tools/k1_walk_sweep.py`, PERF.md)
+  while the walk recomputes each sub-tile's producers; `walk` and `n_buf`
+  are plan fields that the chip check and the sweep set. No TMA.
 
 The source of one group is emitted by this module: the member Funcs' point
 expressions and their footprint arithmetic, with the fixed helpers in
 `csrc/group_kernel.cuh`. It is built once by `nvcc` into
 `build/kernels/<hash>.so` (a plain C interface, loaded with ctypes; the hash
 is of the source) and exports `launch_<hash>(...)`, which takes device
-pointers, strides, extents, the tile origin and the grid counts as plain
+pointers, strides, extents, the output region and the grid as plain
 integers, and returns `cudaGetLastError()`.
 
 Beside the kernel: `run_plain`, the plain PyTorch version of the same plan
-(the same tiles, sub-tiles, shifted origins and windows, evaluated with
+(the same sub-tiles, shifted origins and windows, evaluated with
 eval_torch). A wrapper takes it only for tensors that lie on the CPU; on a
 CUDA tensor it launches the kernel or raises. `launches` counts launches.
 
 Planning follows the JAX planner (member checks, footprints, window
 classification). A schedule the plan cannot take (a multi-value consumer,
 an update definition, a window that does not track the tile, the shared-
-memory budget) is evaluated whole-array by the caller, as the JAX package
+memory limit) is evaluated whole-array by the caller, as the JAX package
 does; the reason is counted in `rejects`. A build or launch failure never
 falls back: it raises.
 
@@ -66,7 +82,9 @@ product or a broadcast + reshape, gated by the probes
 host pre-expansion of lane-axis windows (`Realized.prediv`) and partial
 pre-expansion of sublane-axis ones work around Mosaic's layout rules and
 have no counterpart. A member whose footprint is div-indexed is rejected,
-as the JAX planner derives div symbols for inputs only.
+as the JAX planner derives div symbols for inputs only. The last column
+and row of sub-tiles may sit at any origin phase modulo d, and the plan
+checks that the staged window holds the footprint at every phase.
 
 Not ported yet: the sliding-window carry of store_at producers (they are
 recomputed per sub-tile: same values).
@@ -101,14 +119,25 @@ rejects: collections.Counter = collections.Counter()   # reason -> count
 last_plan: Optional[dict] = None           # the most recent group's plan
 builds = _build.builds                     # (library key, nvcc seconds)
 
-# shared memory a block may take: the sub-tile is the one with the least
-# on-chip bytes per output element that fits _SMEM_TARGET (several blocks
-# resident on an SM), else the least bytes within _SMEM_LIMIT
-_SMEM_TARGET = 48 * 1024
+# the planner's search: sub-tiles up to these, threads a block among these,
+# within the shared memory a block can take (the rule: `_plan_score`)
 _SMEM_LIMIT = 227 * 1024
-_THREADS = 256
-_SUB_X = (128, 64, 32)
-_SUB_Y = (64, 32, 16, 8, 4, 2, 1)
+_SMEM_SM = 228 * 1024          # an SM's shared memory, 1 KB of it per block
+_SUB_X = (256, 128, 64, 32)
+_SUB_Y = (128, 64, 32, 16, 8, 4, 2, 1)
+_THREADS = (128, 256, 512, 1024)
+_SMS = 132                      # SMs of an H100 SXM
+# registers a thread that __launch_bounds__ grants: min_blocks is capped so
+# that 65536 / (threads * min_blocks) stays at least this
+_REGS = 64
+# the rule's constants, fitted to the sweep on the card (PERF.md): the
+# resident warps an SM needs to reach its rate, what one staged byte costs
+# in f32-operation slots (the ratio of the card's f32 rate to its memory
+# rate), and what one phase of a block costs beyond its work (a barrier
+# and the loop around it, in slots of the SM)
+_WARPS_FULL = 32
+_BYTE_OPS = 10.0
+_SYNC = 512000.0
 
 _CSRC = _build.CSRC
 
@@ -341,7 +370,22 @@ class _Stage:
         self.smem_off = 0
         self.index = 0
 
+    def pitch(self) -> int:
+        """Elements from one row (dim-0 run) of the buffer to the next. A
+        window's rows are padded to a multiple of 16 bytes plus 16, so that
+        each row can sit at its source's phase modulo the copy unit."""
+        ext0 = self.dims[0][3]
+        if self.value is not None:
+            return ext0
+        return (_aligned(ext0 * itemsize(self.type)) + 16) \
+            // itemsize(self.type)
+
     def nbytes(self) -> int:
+        return self.pitch() * math.prod(e for _k, _d, _o, e in self.dims[1:]) \
+            * itemsize(self.type)
+
+    def data_bytes(self) -> int:
+        """The elements' bytes, without the rows' padding."""
         return math.prod(e for _k, _d, _o, e in self.dims) \
             * itemsize(self.type)
 
@@ -351,8 +395,10 @@ class GroupPlan:
     time; only pointers, strides, realized bounds and the output region
     are passed at launch. The walk is passed at launch too, so that one
     build runs any of them: on a band-walk plan `walk` may be set above 1,
-    with `n_buf` 2 where `prefetch` is "cp.async", and `band_walk` may be
-    set to False (one sub-tile per block)."""
+    with `n_buf` 2 where it has a walking window (the next sub-tile's copy
+    of it is then in flight by cp.async while the current one computes),
+    and `band_walk` may be set to False (one sub-tile per block). The grid
+    is `ncx` x `ncy` sub-tiles over the output extent."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -362,25 +408,26 @@ class GroupPlan:
         launch: the plan's walk, or one sub-tile per block with single-
         buffered windows where band_walk is off."""
         walk, n_buf = (self.walk, self.n_buf) if self.band_walk else (1, 1)
-        if n_buf == 2 and self.prefetch != "cp.async":
+        if n_buf == 2 and not any(_walks(w) for w in self.windows):
             raise ValueError(f"{self.f.name}: two window buffers need a "
-                             "walking window staged ahead by cp.async")
+                             "walking window")
         moff = self.fixed_bytes + n_buf * self.walk_bytes
         if moff + self.member_bytes > _SMEM_LIMIT:
             raise ValueError(f"{self.f.name}: {n_buf} window buffers take "
                              f"{moff + self.member_bytes} bytes of shared "
                              "memory")
-        rows = self.nty * self.nsy
         return (walk, n_buf, moff, moff + self.member_bytes,
-                (self.ntx * self.nsx, _cdiv(rows, walk)))
+                (self.ncx, _cdiv(self.ncy, walk)))
 
     def record(self) -> dict:
         walk, n_buf, _moff, smem, grid = self.shape()
         return {"func": self.f.name, "tile": (self.tx, self.ty),
                 "sub_tile": (self.sx, self.sy), "grid": grid,
-                "smem_bytes": smem, "threads": _THREADS,
+                "smem_bytes": smem, "threads": self.threads,
+                "min_blocks": self.min_blocks, "model": self.model,
                 "band_walk": self.band_walk, "walk": walk, "n_buf": n_buf,
-                "prefetch": self.prefetch if n_buf == 2 else "none",
+                "prefetch": "cp.async" if n_buf == 2 else "none",
+                "part": self.part,
                 "windows": [w.name for w in self.windows],
                 "div_windows": {w.name: [(k, d) for k, d, _o, _e in w.dims
                                          if d > 1]
@@ -444,7 +491,16 @@ def _member_layout(members: List["_Stage"], out_value) -> int:
     return top
 
 
-def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
+def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
+               sub_tile: Optional[Tuple[int, int]] = None,
+               threads: Optional[int] = None, part: str = "all") -> GroupPlan:
+    """The plan of f's group over `box`. The sub-tile and the threads a
+    block are the rule's choice (`_plan_score`) unless given (the sweep);
+    `part` "stage" or "compute" emits a kernel that only stages the windows
+    or only computes (from whatever shared memory holds), for timing the
+    two apart."""
+    if part not in ("all", "stage", "compute"):
+        raise ValueError(f"part {part!r}")
     if len(f._defs) != 1 or len(f._defs[0].values) != 1:
         raise GroupUnsupported("multi-def/multi-value consumer")
     tile = find_tile(f)
@@ -586,6 +642,10 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
     nty = _cdiv(extents[yi], ty) if yi is not None else 1
     band_walk = band_walk_wanted(f, xdim, ydim, ntx, nty)
     svalue = svals[id(f)]
+    ext_x = extents[xi]
+    ext_y = extents[yi] if yi is not None else 1
+    other = math.prod(e for i, e in enumerate(extents) if i not in (xi, yi))
+    out_type = f._defs[0].values[0].dtype
 
     def layout(stages):
         """-> (fixed window bytes, walking window bytes, member bytes). A
@@ -600,12 +660,50 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                               if id(m) in by_id], svalue)
         return fixed, moving, mem
 
+    def candidates(sx, sy, stages):
+        """The rule's terms of sub-tile (sx, sy) at each thread count."""
+        smem = sum(layout(stages))
+        if smem > _SMEM_LIMIT:
+            return []
+        out_pts = sx * sy * other
+        ops = _weighted(point_ops(svalue)) * out_pts + sum(
+            _weighted(point_ops(s.value)) * math.prod(
+                e for _k, _d, _o, e in s.dims)
+            for s in stages if s.value is not None)
+        free = _weighted(point_ops(svalue)) * out_pts + sum(
+            _weighted(point_ops(s.value)) * sx * sy * math.prod(
+                e for k, _d, _o, e in s.dims if k == "s")
+            for s in stages if s.value is not None)
+        staged = sum(s.data_bytes() for s in stages if s.value is None) \
+            + out_pts * itemsize(out_type)
+        nblocks = _cdiv(ext_x, sx) * _cdiv(ext_y, sy)
+        # outputs the grid computes per output of the extent: the last
+        # column and row, shifted inwards, recompute their overlap
+        cover = nblocks * sx * sy / (ext_x * ext_y)
+        out = []
+        for nt in _THREADS:
+            if nt > out_pts and nt > _THREADS[0]:
+                continue
+            bps = min(_SMEM_SM // (smem + 1024), 2048 // nt, 32)
+            terms = dict(sub_tile=(sx, sy), threads=nt, smem_bytes=smem,
+                         blocks_per_sm=bps, recompute=ops / max(free, 1),
+                         ops_per_out=ops / out_pts,
+                         bytes_per_out=staged / out_pts, blocks=nblocks,
+                         phases=len(members) + 2, out_pts=out_pts,
+                         cover=cover)
+            terms["score"] = _plan_score(terms)
+            out.append(terms)
+        return out
+
     def search():
-        """The sub-tile with the least on-chip bytes per output element
-        within _SMEM_TARGET, else the least bytes within _SMEM_LIMIT."""
-        best, failed, classified = None, None, False
-        xs = sorted({min(s, tx) for s in _SUB_X})
-        ys = sorted({min(s, ty) for s in _SUB_Y}) if ydim else [1]
+        """Every sub-tile within the limit at every thread count, the best
+        by `_plan_score` first. -> (candidates, stages of each sub-tile)."""
+        cands, stages_of, failed = [], {}, None
+        if sub_tile is not None:
+            xs, ys = [min(sub_tile[0], tx)], [min(sub_tile[1], ty)]
+        else:
+            xs = sorted({min(s, tx) for s in _SUB_X})
+            ys = sorted({min(s, ty) for s in _SUB_Y}) if ydim else [1]
         for sx in xs:
             for sy in ys:
                 try:
@@ -613,27 +711,25 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
                 except _SubTileNotMultiple as ex:
                     failed = failed or ex
                     continue
-                classified = True
-                nbytes = sum(layout(stages))
-                if nbytes > _SMEM_LIMIT:
-                    continue
-                key = (nbytes > _SMEM_TARGET,
-                       nbytes / (sx * sy) if nbytes <= _SMEM_TARGET
-                       else nbytes, -sx * sy)
-                if best is None or key < best[0]:
-                    best = (key, sx, sy, stages)
-        if not classified:
+                stages_of[(sx, sy)] = stages
+                cands += [c for c in candidates(sx, sy, stages)
+                          if threads is None or c["threads"] == threads]
+        if not stages_of:
             raise failed
-        return best
+        cands.sort(key=plan_key)
+        return cands, stages_of
 
     # the planned walk is one sub-tile a block, whose windows are counted
     # once; a walk set later with two buffers takes their bytes again
-    best = search()
-    if best is None:
+    cands, stages_of = search()
+    if not cands:
         raise GroupUnsupported(
-            f"shared-memory budget: no sub-tile of {tx}x{ty} fits "
-            f"{_SMEM_LIMIT} bytes")
-    _key, sx, sy, stages = best
+            f"shared-memory limit: no sub-tile of {tx}x{ty} fits "
+            f"{_SMEM_LIMIT} bytes" + (f" at {threads} threads"
+                                      if threads else ""))
+    best = cands[0]
+    sx, sy = best["sub_tile"]
+    stages = stages_of[(sx, sy)]
     _check_div_cover(stages, footprints, sub_scope, sx, sy)
     windows = ([s for s in stages if s.value is None and not _walks(s)]
                + [s for s in stages if s.value is None and _walks(s)])
@@ -646,25 +742,103 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph) -> GroupPlan:
         if s.value is None:
             s.smem_off = off
             off += _aligned(s.nbytes())
-    nsx = _cdiv(tx, sx)
-    nsy = _cdiv(ty, sy) if yi is not None else 1
-    # cp.async moves 4, 8 or 16 bytes: narrower walking windows are staged
-    # after the compute even with two buffers
-    ahead = any(itemsize(w.type) in (4, 8) for w in windows if _walks(w))
-    out_type = f._defs[0].values[0].dtype
     ctype(out_type)
     for s in ordered:
         ctype(s.type)
     plan = GroupPlan(
         f=f, value=svalue, out_type=out_type, dims=dims, xi=xi, yi=yi,
         mins=mins, extents=extents, tx=tx, ty=ty, sx=sx, sy=sy,
-        ntx=ntx, nty=nty, nsx=nsx, nsy=nsy,
+        ntx=ntx, nty=nty, ncx=_cdiv(ext_x, sx), ncy=_cdiv(ext_y, sy),
+        threads=best["threads"],
+        min_blocks=max(1, min(best["blocks_per_sm"],
+                              65536 // (best["threads"] * _REGS))),
+        model={k: best[k] for k in ("score", "recompute", "ops_per_out",
+                                     "bytes_per_out", "blocks_per_sm")},
+        candidates=cands, part=part,
         windows=windows, members=ordered[len(windows):],
         fixed_bytes=fixed_bytes, walk_bytes=walk_bytes,
-        member_bytes=member_bytes, band_walk=band_walk, walk=1, n_buf=1,
-        prefetch="cp.async" if ahead else "none")
+        member_bytes=member_bytes, band_walk=band_walk, walk=1, n_buf=1)
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
+
+
+_FREE_INTRIN = {"param", "buffer_min", "buffer_extent", "likely",
+                "strict_float"}
+
+
+def point_ops(value) -> Tuple[int, int]:
+    """(f32, integer) operations one point of `value` does on its data. The
+    coordinate arithmetic of a read's indices is not counted unless the
+    index depends on data; an operation is counted by its operands' type (a
+    float comparison is an f32 operation); a shared subexpression once."""
+    def reads_data(e):
+        hit = [False]
+
+        def fn(c):
+            hit[0] = hit[0] or isinstance(c, E.Call)
+        walk_expr(e, fn)
+        return hit[0]
+
+    n, seen = [0, 0], set()
+
+    def visit(e):
+        if id(e) in seen:
+            return
+        seen.add(id(e))
+        if isinstance(e, E.Call):
+            for a in e.args:
+                if reads_data(a):
+                    visit(a)
+            return
+        t = None
+        if isinstance(e, E.Binary):
+            t = e.a.dtype
+        elif isinstance(e, E.Select):
+            t = e.true_value.dtype
+        elif isinstance(e, E.Intrin) and e.name not in _FREE_INTRIN:
+            t = e.args[0].dtype if e.args else e.dtype
+        elif isinstance(e, E.Not):
+            t = e.dtype
+        if t is not None:
+            n[0 if t.is_float() else 1] += 1
+        for c in e.children():
+            visit(c)
+    visit(value)
+    return n[0], n[1]
+
+
+def _weighted(ops: Tuple[int, int]) -> int:
+    """f32-operation slots: an integer operation issues on half the lanes."""
+    return ops[0] + 2 * ops[1]
+
+
+def _plan_score(c: dict) -> float:
+    """The rule: time per output, in f32-operation slots. The sub-tile's
+    operations with its halo and its phases (`_SYNC` slots each) on one
+    side, its staged bytes (`_BYTE_OPS` slots each) on the other, overlap
+    as far as other resident blocks can run while one waits: max(a, b) +
+    min(a, b) / resident. That over the share of an SM's rate its resident
+    warps reach (`_WARPS_FULL` reach it all; blocks resident by shared
+    memory and threads: the registers are not known before the build),
+    times the outputs the grid computes per output (the shifted last column
+    and row overlap the ones before) and the grid's wave quantization (the
+    last wave of blocks may leave SMs idle)."""
+    bps = c["blocks_per_sm"]
+    waves = _cdiv(c["blocks"], _SMS * bps)
+    resident = min(bps, _cdiv(c["blocks"], _SMS))
+    warps = resident * c["threads"] / 32
+    a = c["ops_per_out"] + _SYNC * c["phases"] / (c["out_pts"] * resident)
+    b = _BYTE_OPS * c["bytes_per_out"]
+    work = max(a, b) + min(a, b) / resident
+    return work / min(1.0, warps / _WARPS_FULL) * c["cover"] \
+        * waves * _SMS * bps / c["blocks"]
+
+
+def plan_key(c: dict):
+    """The planner's order of candidates: the rule, then the larger
+    sub-tile, then fewer threads."""
+    return (_plan_score(c), -c["sub_tile"][0] * c["sub_tile"][1],
+            c["threads"])
 
 
 def _walks(s: "_Stage") -> bool:
@@ -731,12 +905,15 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
     return Realized((out,), plan.mins, f.name)
 
 
-def group_calls(pipeline, device=None) -> list:
+def group_calls(pipeline, device=None, replan=None) -> list:
     """Every group of `pipeline`'s last realize, in the order it ran them,
     made again so that the kernel can be held against its plain version
     (the tests, the chip check): each plan comes from the realize's planned
     graph, and the groups' inputs from evaluating every stored stage
-    whole-array over the box that realize gave it. -> [(plan, inputs,
+    whole-array over the box that realize gave it. With `replan` (plan ->
+    a list of keyword arguments of `plan_group`: sub_tile, threads, part),
+    each group is planned again once for each of them, in its place (the
+    sweep); a variant the plan cannot take is left out. -> [(plan, inputs,
     real_mins, params, realizations)]. A realize keeps none of its tensors
     for this."""
     from ..buffer import Buffer
@@ -755,6 +932,16 @@ def group_calls(pipeline, device=None) -> list:
         box = planned["boxes"].get(id(fn))
         if id(fn) in g.materialized and box is not None and box.defined():
             realz[id(fn)] = _evaluate_func(fn, box, ctx0)
+    if replan is not None:
+        variants = []
+        for p in plans:
+            for kw in replan(p):
+                try:
+                    variants.append(plan_group(
+                        p.f, planned["boxes"][id(p.f)], ctx0, g, **kw))
+                except GroupUnsupported:
+                    pass
+        plans = variants
     return [(plan, [realz[id(w.target)].arrays[0] for w in plan.windows],
              [realz[id(w.target)].mins for w in plan.windows], params, realz)
             for plan in plans]
@@ -771,22 +958,20 @@ def group_call(pipeline, device=None):
 
 def _origins(plan: GroupPlan, rows=None):
     """Sub-tile origins (x0, y0) of every block, as the kernel computes
-    them: shift-inwards tiles, shift-inwards sub-tiles within each. `rows`
-    keeps the sub-tile rows it holds (indices along y), where given."""
+    them: the sub-tiles of the output extent, the last column and row
+    shifted inwards. `rows` keeps the sub-tile rows it holds (indices along
+    y), where given."""
     xi, yi = plan.xi, plan.yi
-    for by in range(plan.nty * plan.nsy):
+    for by in range(plan.ncy):
         if rows is not None and by not in rows:
             continue
-        for bx in range(plan.ntx * plan.nsx):
-            ox = min(plan.mins[xi] + (bx // plan.nsx) * plan.tx,
-                     plan.mins[xi] + plan.extents[xi] - plan.tx)
-            x0 = ox + min((bx % plan.nsx) * plan.sx, plan.tx - plan.sx)
-            y0 = 0
-            if yi is not None:
-                oy = min(plan.mins[yi] + (by // plan.nsy) * plan.ty,
-                         plan.mins[yi] + plan.extents[yi] - plan.ty)
-                y0 = oy + min((by % plan.nsy) * plan.sy, plan.ty - plan.sy)
-            yield x0, y0
+        y0 = 0
+        if yi is not None:
+            y0 = min(plan.mins[yi] + by * plan.sy,
+                     plan.mins[yi] + plan.extents[yi] - plan.sy)
+        for bx in range(plan.ncx):
+            yield min(plan.mins[xi] + bx * plan.sx,
+                      plan.mins[xi] + plan.extents[xi] - plan.sx), y0
 
 
 def plain_rows(plan: GroupPlan, rows) -> List[int]:
@@ -806,7 +991,7 @@ def _stage_box(s: _Stage, x0: int, y0: int):
 
 def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
               dev: torch.device, rows=None) -> torch.Tensor:
-    """The same plan as the kernel, block by block, in torch: windows
+    """The same plan as the kernel, sub-tile by sub-tile, in torch: windows
     gathered with edge replication, members and the sub-tile evaluated with
     eval_torch over the same boxes, in the same storage types. `params`
     maps id(Param) to its value. With `rows` (sub-tile row indices), only
@@ -1043,7 +1228,7 @@ class _PointEmitter:
         for j, a in enumerate(e.args):
             av = self.val(a)
             idx.append(f"({av} - t.{_field(s)}_lo[{j}]) * {stride}")
-            stride *= s.dims[j][3]
+            stride *= s.pitch() if j == 0 else s.dims[j][3]
         return self.let(s.type, f"t.{_field(s)}[{' + '.join(idx)}]")
 
 
@@ -1052,7 +1237,6 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     stages = plan.windows + plan.members
     by_id = {id(s.target): s for s in stages}
     nd_out = len(plan.dims)
-    moving = [w for w in plan.windows if _walks(w)]
     L: List[str] = [
         "// Stencil-group kernel, emitted by halide_tpu_torch/ops/"
         "group_kernel.py",
@@ -1068,6 +1252,12 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "constexpr int SMEM_MAX = %d;  // the two-buffer layout's bytes"
         % (plan.fixed_bytes + 2 * plan.walk_bytes + plan.member_bytes),
         f"constexpr int WALK_BYTES = {plan.walk_bytes};",
+        f"constexpr int THREADS = {plan.threads};",
+        f"constexpr int MIN_BLOCKS = {plan.min_blocks};",
+        "constexpr bool STAGE = %s;"
+        % ("false" if plan.part == "compute" else "true"),
+        "constexpr bool COMPUTE = %s;"
+        % ("false" if plan.part == "stage" else "true"),
         "",
         "// the shared-memory buffers of one sub-tile and their origins",
         "struct Tile {",
@@ -1076,6 +1266,8 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     for s in stages:
         L.append(f"  const {ctype(s.type)}* {_field(s)};")
         L.append(f"  int {_field(s)}_lo[{len(s.dims)}];")
+        if s.value is None:
+            L.append(f"  int {_field(s)}_ph;  // copy phase; -1: edge path")
     L += ["};", ""]
     # point functions
     for s in plan.members + [None]:
@@ -1098,7 +1290,6 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
           f"  long long out_stride[{nd_out}];",
           f"  int out_min[{nd_out}];",
           f"  int out_ext[{nd_out}];",
-          "  int tile_x, tile_y, nsub_x, nsub_y;",
           "  int rows, walk, nbuf, moff;",
           "};", ""]
 
@@ -1118,61 +1309,62 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         lines += body
         lines.append("    }")
 
+    # each window's extents, declared in every function that uses them (a
+    # namespace-scope array's address cannot be taken in device code)
+    exts = {k: "  const int ext%d[%d] = {%s};" % (
+        k, len(w.dims), ", ".join(str(e) for _k, _d, _o, e in w.dims))
+        for k, w in enumerate(plan.windows)}
     # the sub-tile of row r: origins, buffers (walking windows in buffer
-    # `buf`, members above the windows at p.moff) and window origins
+    # `buf`, members above the windows at p.moff), window origins and each
+    # window's copy phase
     L += [
-        "// Sub-tile (bx, r): column bx of the sub-tile grid, row r along y.",
+        "// Sub-tile (bx, r): column bx and row r of the sub-tile grid over",
+        "// the output, the last column and row shifted inwards.",
         "HL_FN Tile tile_at(const Params& p, int bx, int r, int buf,",
         "                   unsigned char* smem) {",
         "  Tile t;",
-        "  const int ox = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], "
-        "p.tile_x, bx / p.nsub_x);" % (plan.xi, plan.xi),
-        "  const int x0 = ox + hl_min<int>((bx % p.nsub_x) * SX, "
-        "p.tile_x - SX);",
+        "  const int x0 = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], SX, "
+        "bx);" % (plan.xi, plan.xi),
     ]
     if plan.yi is not None:
-        L += [
-            "  const int oy = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], "
-            "p.tile_y, r / p.nsub_y);" % (plan.yi, plan.yi),
-            "  const int y0 = oy + hl_min<int>((r % p.nsub_y) * SY, "
-            "p.tile_y - SY);",
-        ]
+        L.append("  const int y0 = hl_shift_inwards(p.out_min[%d], "
+                 "p.out_ext[%d], SY, r);" % (plan.yi, plan.yi))
     else:
         L.append("  const int y0 = 0; (void)r;")
     L.append("  t.x0 = x0; t.y0 = y0; (void)buf;")
     for s in stages:
-        cn = _field(s)
-        if s.value is not None:
-            base = f"smem + p.moff + {s.smem_off}"
-        elif _walks(s):
-            base = f"smem + {s.smem_off} + buf * WALK_BYTES"
-        else:
-            base = f"smem + {s.smem_off}"
-        L.append(f"  t.{cn} = (const {ctype(s.type)}*)({base});")
+        cn, ct = _field(s), ctype(s.type)
         for j, (k, d, off, _e) in enumerate(s.dims):
             origin = {"x": "x0", "y": "y0", "s": ""}[k]
             if origin and d > 1:       # floor division, never C's `/`
                 origin = f"hl_div<int>({origin}, {d})"
             base = f"{origin} + " if origin else ""
             L.append(f"  t.{cn}_lo[{j}] = {base}{off};")
+        if s.value is not None:
+            L.append(f"  t.{cn} = (const {ct}*)(smem + p.moff + "
+                     f"{s.smem_off});")
+            continue
+        k = plan.windows.index(s)
+        buf = " + buf * WALK_BYTES" if _walks(s) else ""
+        L += ["  {", "  " + exts[k],
+              f"    t.{cn}_ph = hl_window_phase<{ct}, {len(s.dims)}>("
+              f"p.in{k}, t.{cn}_lo, ext{k});",
+              f"    t.{cn} = (const {ct}*)(smem + {s.smem_off}{buf}) + "
+              f"(t.{cn}_ph > 0 ? t.{cn}_ph : 0);", "  }"]
     L += ["  return t;", "}", ""]
-    # each window's extents, declared in every function that stages it (a
-    # namespace-scope array's address cannot be taken in device code)
-    exts = {k: "  const int ext%d[%d] = {%s};" % (
-        k, len(w.dims), ", ".join(str(e) for _k, _d, _o, e in w.dims))
-        for k, w in enumerate(plan.windows)}
     L += [
-        "// Stage the windows of sub-tile (bx, r) with plain loads: the",
-        "// walking ones, and the fixed ones too where `fixed`.",
+        "// Stage the windows of sub-tile (bx, r): the walking ones, and the",
+        "// fixed ones too where `fixed`. Copies by cp.async stay in flight",
+        "// until hl_async_wait().",
         "HL_FN void stage(const Params& p, int bx, int r, int buf, int tid,",
         "                 int nth, unsigned char* smem, bool fixed) {",
         "  const Tile t = tile_at(p, bx, r, buf, smem);",
-        "  (void)fixed;",
+        "  (void)fixed; (void)t; (void)tid; (void)nth;",
     ] + list(exts.values())
     for k, w in enumerate(plan.windows):
         cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
-        call = (f"hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, p.in{k}, "
-                f"t.{cn}_lo, ext{k}, tid, nth);")
+        call = (f"hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, t.{cn}_ph, "
+                f"{w.pitch()}, p.in{k}, t.{cn}_lo, ext{k}, tid, nth);")
         L.append(f"  {call}" if _walks(w) else f"  if (fixed) {call}")
     L += ["}", ""]
     L += [
@@ -1213,53 +1405,30 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     L += ["    break;", "  }", "  }", "}", ""]
     nphase = len(plan.members) + 2
     L += [f"constexpr int NPHASE = {nphase};", ""]
-
-    # the next sub-tile's walking windows, staged ahead of the compute by
-    # cp.async, the narrower ones after it
-    L += ["HL_FN void prefetch_start(const Params& p, int bx, int r, int buf,",
-          "                          int tid, int nth, unsigned char* smem) {",
-          "  const Tile t = tile_at(p, bx, r, buf, smem);",
-          "  (void)t;"]
-    fin = ["HL_FN void prefetch_finish(const Params& p, int bx, int r,",
-           "                           int buf, int tid, int nth,",
-           "                           unsigned char* smem) {",
-           "  const Tile t = tile_at(p, bx, r, buf, smem);",
-           "  (void)t;"]
-    if plan.prefetch == "cp.async":
-        fin.append("  hl_async_wait();")
-    for k, w in enumerate(plan.windows):
-        if w not in moving:
-            continue
-        cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
-        call = (f"<{ct}, {nd}>(({ct}*)t.{cn}, p.in{k}, t.{cn}_lo, ext{k}, "
-                "tid, nth);")
-        if itemsize(w.type) in (4, 8):
-            L += [exts[k], f"  hl_stage_window_async{call}"]
-        else:
-            fin += [exts[k], f"  hl_stage_window{call}"]
-    L += ["}", ""] + fin + ["}", ""]
     L += [
         "// One block: column bx of the sub-tile grid, walking sub-tile rows",
         "// [by * walk, by * walk + walk) in order (one row where the band",
         "// walk is off). With two window buffers the next row's walking",
-        "// windows are staged while the current row computes.",
+        "// windows are staged while the current row computes. STAGE and",
+        "// COMPUTE are both true but in the kernels that time the two apart.",
         "HL_FN void run_block(const Params& p, int bx, int by, int tid,",
         "                     int nth, unsigned char* smem) {",
         "  const int r0 = by * p.walk;",
         "  const int r1 = hl_min<int>(r0 + p.walk, p.rows);",
         "  for (int r = r0; r < r1; ++r) {",
         "    const int buf = p.nbuf == 2 ? (r - r0) & 1 : 0;",
-        "    if (r == r0 || p.nbuf == 1) {",
+        "    if (STAGE && (r == r0 || p.nbuf == 1)) {",
         "      stage(p, bx, r, buf, tid, nth, smem, r == r0);",
+        "      hl_async_wait();",
         "      hl_sync();",
         "    }",
-        "    const bool ahead = p.nbuf == 2 && r + 1 < r1;",
-        "    if (ahead) prefetch_start(p, bx, r + 1, buf ^ 1, tid, nth, smem);",
-        "    for (int ph = 1; ph < NPHASE; ++ph) {",
+        "    const bool ahead = STAGE && p.nbuf == 2 && r + 1 < r1;",
+        "    if (ahead) stage(p, bx, r + 1, buf ^ 1, tid, nth, smem, false);",
+        "    for (int ph = 1; COMPUTE && ph < NPHASE; ++ph) {",
         "      if (ph > 1) hl_sync();",
         "      phase(p, bx, r, buf, tid, nth, smem, ph);",
         "    }",
-        "    if (ahead) prefetch_finish(p, bx, r + 1, buf ^ 1, tid, nth, smem);",
+        "    if (ahead) hl_async_wait();",
         "    hl_sync();",
         "  }",
         "}",
@@ -1283,8 +1452,8 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                      ("ext", ("int", ctypes.c_int))):
         for j in range(nd_out):
             sig.append((ct[0], f"out_{kind}{j}", ct[1]))
-    for name in ("tile_x", "tile_y", "nsub_x", "nsub_y", "rows", "walk",
-                 "nbuf", "moff", "smem_bytes", "grid_x", "grid_y"):
+    for name in ("rows", "walk", "nbuf", "moff", "smem_bytes", "grid_x",
+                 "grid_y"):
         sig.append(("int", name, ctypes.c_int))
     params = ", ".join(f"{c} {n}" for c, n, _ in sig)
     fill = []
@@ -1294,18 +1463,19 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
             fill.append(f"  p.in{k}.stride[{j}] = in{k}_stride{j}; "
                         f"p.in{k}.rmin[{j}] = in{k}_rmin{j}; "
                         f"p.in{k}.rsize[{j}] = in{k}_rsize{j};")
+        fill.append(f"  p.in{k}.unit = hl_copy_unit<{ctype(w.type)}, "
+                    f"{len(w.dims)}>(p.in{k});")
     fill.append(f"  p.out = ({ctype(plan.out_type)}*)out;")
     for j in range(nd_out):
         fill.append(f"  p.out_stride[{j}] = out_stride{j}; "
                     f"p.out_min[{j}] = out_min{j}; "
                     f"p.out_ext[{j}] = out_ext{j};")
-    fill.append("  p.tile_x = tile_x; p.tile_y = tile_y; "
-                "p.nsub_x = nsub_x; p.nsub_y = nsub_y;")
     fill.append("  p.rows = rows; p.walk = walk; p.nbuf = nbuf; "
                 "p.moff = moff;")
     L += [
         "#ifdef __CUDACC__",
-        f"__global__ void __launch_bounds__({_THREADS}) KERNEL(Params p) {{",
+        "__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) "
+        "KERNEL(Params p) {",
         "  extern __shared__ __align__(16) unsigned char smem[];",
         "  run_block(p, blockIdx.x, blockIdx.y, threadIdx.x, blockDim.x,"
         " smem);",
@@ -1314,19 +1484,25 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         f'extern "C" int LAUNCH({params}, void* stream) {{',
         "  Params p;",
     ] + fill + [
+        "  // all of the SM's unified memory to shared memory, so that the",
+        "  // resident blocks the plan counts on fit",
+        "  cudaError_t e = cudaFuncSetAttribute(",
+        "      KERNEL, cudaFuncAttributePreferredSharedMemoryCarveout,",
+        "      cudaSharedmemCarveoutMaxShared);",
+        "  if (e != cudaSuccess) return (int)e;",
         "  if (smem_bytes > 48 * 1024) {",
-        "    cudaError_t e = cudaFuncSetAttribute(",
+        "    e = cudaFuncSetAttribute(",
         "        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize,"
         " smem_bytes);",
         "    if (e != cudaSuccess) return (int)e;",
         "  }",
-        f"  KERNEL<<<dim3(grid_x, grid_y), {_THREADS}, smem_bytes, "
+        "  KERNEL<<<dim3(grid_x, grid_y), THREADS, smem_bytes, "
         "(cudaStream_t)stream>>>(p);",
         "  return (int)cudaGetLastError();",
         "}",
         "#else",
         "// Host build of the same blocks and walk, one thread each (CPU",
-        "// tests).",
+        "// tests): the same staging paths, with plain copies.",
         f'extern "C" int HOST({params}) {{',
         "  Params p;",
     ] + fill + [
@@ -1371,7 +1547,7 @@ def build(plan: GroupPlan) -> ctypes.CDLL:
 def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     """The launcher's arguments after the kernel's own constants: pointers,
     strides and realized bounds per pipeline dim, the output region, the
-    tile, the walk (GroupPlan.shape) and the grid."""
+    sub-tile rows, the walk (GroupPlan.shape) and the grid."""
     args = []
     for w, arr, rmins in zip(plan.windows, inputs, real_mins):
         nd = arr.ndim
@@ -1384,8 +1560,7 @@ def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     args += [out.stride(n - 1 - j) for j in range(n)]
     args += list(plan.mins) + list(plan.extents)
     walk, n_buf, moff, smem, grid = plan.shape()
-    args += [plan.tx, plan.ty, plan.nsx, plan.nsy, plan.nty * plan.nsy,
-             walk, n_buf, moff, smem, grid[0], grid[1]]
+    args += [plan.ncy, walk, n_buf, moff, smem, grid[0], grid[1]]
     return args
 
 

@@ -7,14 +7,20 @@ K2b its per-element body (`_kernel_general`, `a` an array like `b`). Both are
 entry points of one CUDA source, `csrc/scan_kernel.cu`, built through
 ops/build.py (nvcc -> plain-C `.so` -> ctypes).
 
-- Bound: device-memory bytes (b read, y written, a read for K2b).
+- Bound: device-memory bytes (b read once, y written once, a read once for
+  K2b).
 - Design: the array is viewed as (G, N, M) with N the scan axis, through its
-  strides (no transpose); one thread walks one (g, m) line with the carry in
-  a register, from the init row, and writes y straight into the caller's
-  span (the Func's buffer). A backward scan walks from the end.
-- Known limits (next speed work, in ROADMAP): the scan along the contiguous
-  axis is uncoalesced, and a scan along a strided axis has only G * M
-  threads.
+  strides (no transpose). A block takes 32 lines by a segment of 8 x `sub`
+  elements of the scan axis (`sub_for`); its threads scan `sub`-element
+  pieces from a zero carry
+  into affine pairs (A, B), compose them, and take the carry into the
+  segment by decoupled look-back over the blocks before it (block order by
+  a ticket counter). Along a strided axis the lanes read consecutive m
+  (coalesced); along the contiguous one the segments are staged through
+  shared memory by 16-byte loads where the strides and alignment allow. y
+  goes straight into the caller's span (the Func's buffer). The wrapper
+  allocates the look-back storage (`torch.zeros` for the flags); the kernel
+  allocates nothing.
 
 Beside the kernel: `linear_scan_plain`, its plain PyTorch version -- the JAX
 package's algorithm (Kogge-Stone shift-FMA rounds within blocks of 256 along
@@ -38,6 +44,14 @@ launches = {"const": 0, "general": 0}     # kernel launches on CUDA tensors
 
 _BN = 256           # scan-axis block of the plain version (the JAX kernel's)
 _EPS = 1e-12        # drop shift rounds whose decay underflows f32
+
+
+def sub_for(const: bool, contiguous: bool) -> int:
+    """Elements a thread scans: 32 for K2a along the contiguous axis (half
+    the blocks and look-backs for the same bytes; measured faster there,
+    and slower along a strided axis, PERF.md), else 16 (K2b's staged a and
+    b at 32 would pass 48 KB of static shared memory)."""
+    return 32 if const and contiguous else 16
 
 
 def linear_scan_plain(b: torch.Tensor, init: torch.Tensor, axis: int,
@@ -121,20 +135,26 @@ _INT = ctypes.c_int
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the entry points of a build of csrc/scan_kernel.cu."""
     tail = [_PTR, _I64, _I64, _PTR, _I64, _I64, _I64, _INT, _INT, _INT,
-            _INT, _PTR]                # init, y, G N M, backward, stream
+            _INT, _INT, _PTR, _PTR, _PTR]    # init, y, G N M, backward,
+    #                                          sub, flags, pairs, stream
     lib.scan_const.argtypes = [_PTR, _I64, _I64, _I64, ctypes.c_float] + tail
     lib.scan_const.restype = _INT
     lib.scan_general.argtypes = [_PTR, _I64, _I64, _I64,
                                  _PTR, _I64, _I64, _I64] + tail
     lib.scan_general.restype = _INT
+    lib.scan_storage.argtypes = [_INT, _INT, _INT, _INT,
+                                 ctypes.POINTER(_I64), ctypes.POINTER(_I64)]
+    lib.scan_storage.restype = None
     return lib
 
 
 def call(lib: ctypes.CDLL, out, b, init, axis: int, backward: bool,
-         a_const=None, a=None, stream=None) -> int:
+         a_const=None, a=None, stream=None, sub=None) -> int:
     """Call the entry point of `lib` for these tensors: (G, N, M) views
-    through their strides, the result written into `out`. Returns the
-    entry point's code (cudaGetLastError() on the card)."""
+    through their strides, the result written into `out`, the look-back
+    storage allocated here on out's device (the flags zeroed), `sub`
+    elements a thread (`sub_for` where not given). Returns the entry
+    point's code (cudaGetLastError() on the card)."""
     shape = list(out.shape)
     shape[axis] = 1
     try:
@@ -146,9 +166,16 @@ def call(lib: ctypes.CDLL, out, b, init, axis: int, backward: bool,
     b3 = _gnm(b, axis)
     i3 = _gnm(init.expand(shape), axis)
     G, N, M = y.shape
+    if sub is None:
+        sub = sub_for(a is None, M == 1)
+    nflags, npairs = _I64(), _I64()
+    lib.scan_storage(G, N, M, sub, ctypes.byref(nflags),
+                     ctypes.byref(npairs))
+    flags = torch.zeros(nflags.value, dtype=torch.int32, device=out.device)
+    pairs = torch.empty(npairs.value, dtype=torch.float32, device=out.device)
     tail = [i3.data_ptr(), i3.stride(0), i3.stride(2), y.data_ptr(),
             y.stride(0), y.stride(1), y.stride(2), G, N, M, int(backward),
-            stream]
+            sub, flags.data_ptr(), pairs.data_ptr(), stream]
     if a is None:
         return lib.scan_const(b3.data_ptr(), b3.stride(0), b3.stride(1),
                               b3.stride(2), float(a_const), *tail)
@@ -160,9 +187,11 @@ def call(lib: ctypes.CDLL, out, b, init, axis: int, backward: bool,
 
 def launch(out: torch.Tensor, b: torch.Tensor, init: torch.Tensor, axis: int,
            backward: bool, a_const: Optional[float] = None,
-           a: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K2a (a_const) or K2b (a) on CUDA tensors, writing into `out`.
-    Raises on a tensor it does not take and on a build or launch error."""
+           a: Optional[torch.Tensor] = None,
+           sub: Optional[int] = None) -> torch.Tensor:
+    """Launch K2a (a_const) or K2b (a) on CUDA tensors, writing into `out`
+    (`sub` elements a thread; `sub_for` where not given). Raises on a
+    tensor it does not take and on a build or launch error."""
     if (a_const is None) == (a is None):
         raise ValueError("give exactly one of a_const and a")
     named = [("out", out), ("b", b), ("init", init)] + \
@@ -181,7 +210,7 @@ def launch(out: torch.Tensor, b: torch.Tensor, init: torch.Tensor, axis: int,
     body = "const" if a is None else "general"
     rc = call(bind(_build.load_fixed("scan_kernel")), out, b, init, axis,
               backward, a_const, a,
-              torch.cuda.current_stream(out.device).cuda_stream)
+              torch.cuda.current_stream(out.device).cuda_stream, sub)
     if rc != 0:
         raise RuntimeError(f"scan kernel ({body}) launch failed: "
                            f"cudaError {rc}")

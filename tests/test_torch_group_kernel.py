@@ -117,13 +117,22 @@ def test_plain_version_matches_whole_array(name, kw):
 
 def test_plan_record_and_sub_tiles():
     """linear_blur's tile is a full-width row band; the plan sub-tiles it
-    so that a block's shared memory stays within the budget."""
+    by the rule: of every sub-tile within the 227 KB a block can take, at
+    every thread count, the one with the least `_plan_score`; the grid
+    covers the output extent once."""
     _app, _data, _out, call = _group_call("linear_blur", width=640,
                                           height=96)
-    rec = call[0].record()
+    plan = call[0]
+    rec = plan.record()
     assert rec["tile"] == (640, 96)
     sx, sy = rec["sub_tile"]
-    assert sx <= 128 and sy <= 64 and rec["smem_bytes"] <= gk._SMEM_TARGET
+    assert sx <= 256 and sy <= 128 and rec["smem_bytes"] <= gk._SMEM_LIMIT
+    assert rec["threads"] in gk._THREADS
+    best = min(plan.candidates, key=lambda c: c["score"])
+    assert rec["model"]["score"] == best["score"]
+    assert len({c["sub_tile"] for c in plan.candidates}) > 1
+    ext_x, ext_y = plan.extents[plan.xi], plan.extents[plan.yi]
+    assert rec["grid"] == (-(-ext_x // sx), -(-ext_y // sy))
     assert rec["members"] == ["blur_x", "simple_blur"]
     assert rec["windows"] == ["srgb_to_linear"]
 
@@ -478,33 +487,36 @@ def test_band_walk_decision_matches_jax_band_split(case):
 def test_band_walk_plan_fields():
     """A band-walk plan is planned to walk one sub-tile a block; set to walk
     further, its grid has a row of blocks per walk, and the walking window
-    is counted twice in the shared memory of a two-buffer walk, which only
-    windows staged by cp.async (4 and 8 bytes) may take."""
-    for dtype, prefetch in (("uint16", "none"), ("int32", "cp.async")):
+    is counted twice in the shared memory of a two-buffer walk, which any
+    walking window may take (its next copy is staged by cp.async, in
+    16-byte pieces where it lies inside the region, u16 as i32); a plan
+    without a walking window refuses two buffers."""
+    for dtype in ("uint16", "int32"):
         _img, pipe, _out = _band_realize("bands8", dtype)
         plan = gk.group_call(pipe, "cpu")[0]
         assert plan.band_walk and plan.walk == 1 and plan.n_buf == 1
         (win,) = plan.windows
-        assert gk._walks(win) and plan.prefetch == prefetch
+        assert gk._walks(win)
         p2 = copy.copy(plan)
         p2.walk = 3
         assert p2.shape()[:2] == (3, 1)
         assert p2.record()["prefetch"] == "none"
         p2.n_buf = 2
-        if prefetch == "none":
-            with pytest.raises(ValueError, match="cp.async"):
-                p2.shape()
-            continue
         walk, n_buf, moff, smem, grid = p2.shape()
         assert (walk, n_buf) == (3, 2)
         assert moff == plan.fixed_bytes + 2 * plan.walk_bytes
         assert smem == moff + plan.member_bytes
-        assert grid == (plan.ntx * plan.nsx, -(-plan.nty * plan.nsy // 3))
+        ext_x, ext_y = plan.extents[plan.xi], plan.extents[plan.yi]
+        assert grid == (-(-ext_x // plan.sx), -(-(-(-ext_y // plan.sy)) // 3))
         assert p2.record()["prefetch"] == "cp.async"
         off = copy.copy(p2)
         off.band_walk = False
         assert off.shape()[:2] == (1, 1)
         assert off.record()["prefetch"] == "none"
+        unwalked = copy.copy(p2)
+        unwalked.windows = []
+        with pytest.raises(ValueError, match="walking window"):
+            unwalked.shape()
 
 
 def _walks_of(plan):
@@ -513,7 +525,8 @@ def _walks_of(plan):
     walking windows are staged ahead by cp.async."""
     out = [plan]
     for walk in (1, 3, 5):
-        for n_buf in (1, 2) if plan.prefetch == "cp.async" else (1,):
+        for n_buf in (1, 2) if any(gk._walks(w) for w in plan.windows) \
+                else (1,):
             p = copy.copy(plan)
             p.band_walk, p.walk, p.n_buf = True, walk, n_buf
             out.append(p)
@@ -533,8 +546,8 @@ def test_band_walk_source_on_host_matches_golden(case, dtype, tmp_path):
     np.testing.assert_array_equal(out, gold)
     plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
     assert plan.record()["band_walk"] == BAND_CASES[case][5]
-    assert plan.prefetch == ("cp.async" if dtype == "int32" else "none")
-    assert ("hl_stage_window_async" in plan.source) == (dtype == "int32")
+    assert any(gk._walks(w) for w in plan.windows)
+    assert "hl_stage_window<" in plan.source
     fn = _host_build(plan, tmp_path)
     for p in _walks_of(plan):
         host = torch.zeros(tuple(reversed(p.extents)),
@@ -555,7 +568,7 @@ def test_band_walk_cp_async_route_on_host(tmp_path):
     rec = plan.record()
     assert rec["band_walk"] and rec["tile"] == (64, 256)
     assert (rec["walk"], rec["n_buf"], rec["prefetch"]) == (1, 1, "none")
-    assert plan.prefetch == "cp.async"
+    assert any(gk._walks(w) for w in plan.windows)
     np.testing.assert_allclose(out, app.reference(**data), rtol=1e-4,
                                atol=1e-4)
     fn = _host_build(plan, tmp_path)
@@ -572,11 +585,12 @@ def test_plain_version_over_some_sub_tile_rows():
     last rows included."""
     _img, pipe, out = _band_realize("ragged_tail")
     plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
-    n = plan.nty * plan.nsy
+    n = plan.ncy
     rows = [0, 1, n - 2, n - 1]
     ys = gk.plain_rows(plan, rows)
     assert ys[0] == 0 and ys[-1] == plan.extents[plan.yi] - 1
-    assert len(ys) == 4 * plan.sy < plan.extents[plan.yi]
+    # the last sub-tile row is shifted inwards over the one before it
+    assert 3 * plan.sy < len(ys) <= 4 * plan.sy < plan.extents[plan.yi]
     part = gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"),
                         rows)
     np.testing.assert_array_equal(part.numpy()[ys], out[ys])
@@ -737,6 +751,232 @@ def test_intrinsics_kernel_match_plain_version_on_the_card(case):
     out = pipe.realize([IW, IH])
     assert gk.launches == launches + 1
     plan, inputs, rmins, params, _realz = gk.group_call(pipe)
+    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, plain)
+
+
+# ---------------------------------------------------------------------------
+# the grid over the output extent (no output computed twice), a plan for
+# Hopper's shared memory and threads, and the 16-byte window staging
+# ---------------------------------------------------------------------------
+
+def _ragged_pipeline(m, a_np, tile, device="cpu"):
+    """A two-member i32 chain under a tile narrower than the output, as
+    stencil_chain's anchors are (their extent is the tile plus the later
+    stencils' reach): inp -> m1 -> m2 (compute_at) -> out (tiled)."""
+    inp = m.ImageParam(m.Int(32), 2, "inp")
+    x, y = m.Var("x"), m.Var("y")
+    xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+    e = m.repeat_edge(inp)
+    m1, m2, out = m.Func("m1"), m.Func("m2"), m.Func("out")
+    m1[x, y] = e[x - 1, y] + e[x + 2, y + 1] * 3
+    m2[x, y] = m1[x, y - 1] * 2 - m1[x + 1, y]
+    out[x, y] = m2[x, y] + m2[x + 2, y + 1]
+    out.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+    m1.compute_at(out, xo)
+    m2.compute_at(out, xo)
+    inp.set(torch.from_numpy(a_np).to(device) if m is ht else a_np)
+    return m.Pipeline(out)
+
+
+RAGGED = [(70, 50, (64, 32), (32, 16)), (70, 50, (64, 32), None),
+          (45, 37, (40, 36), (32, 32))]
+
+
+@pytest.mark.parametrize("w,h,tile,sub", RAGGED)
+def test_ragged_tile_grid_covers_the_extent_once(w, h, tile, sub, tmp_path):
+    """The output extent is not a multiple of the tile: the plan's grid is
+    cdiv(extent, sx) x cdiv(extent_y, sy) sub-tiles (no output computed
+    twice; the tiles x sub-tiles grid took cdiv(extent, tx) * cdiv(tx,
+    sx) columns), and its plain version and the g++ build equal the JAX
+    package's realize of the same pipeline (Pallas in interpret mode; the
+    JAX planner partitions the ragged extent), bit for bit."""
+    import halide_tpu as hl
+    a = np.random.default_rng(8).integers(-500, 500, (h + 4, w + 4)) \
+        .astype(np.int32)
+    pipe = _ragged_pipeline(ht, a, tile)
+    before = sum(gk.rejects.values())
+    out = pipe.realize([w, h], device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    ref = np.asarray(_ragged_pipeline(hl, a, tile).realize([w, h])
+                     .to_numpy())
+    np.testing.assert_array_equal(out, ref)
+    replan = None if sub is None else (
+        lambda p: [dict(sub_tile=sub, threads=128)])
+    plan, inputs, rmins, params, _r = gk.group_calls(pipe, "cpu",
+                                                     replan)[0]
+    if sub is not None:
+        assert (plan.sx, plan.sy) == sub
+    assert plan.sx <= plan.tx and plan.sy <= plan.ty
+    assert plan.record()["grid"] == (-(-w // plan.sx), -(-h // plan.sy))
+    origins = list(gk._origins(plan))
+    assert len(origins) == len(set(origins)) == plan.ncx * plan.ncy
+    assert max(x0 for x0, _ in origins) == w - plan.sx
+    np.testing.assert_array_equal(
+        gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"))
+        .numpy(), ref)
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros((h, w), dtype=torch.int32)
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), ref)
+
+
+def test_plan_above_48kb_with_512_threads_on_host(tmp_path):
+    """A sub-tile whose shared memory passes 48 KB, at 512 threads a block
+    (the card takes it as dynamic shared memory, up to 227 KB): the g++
+    build of the same blocks equals the plain version point by point, and
+    the emitted kernel carries the threads in __launch_bounds__."""
+    _app, _data, out, (plan, *_x) = _group_call("linear_blur", width=200,
+                                                height=160)
+    app = _app
+    (q, inputs, rmins, _p, _r), = gk.group_calls(
+        app.pipeline, "cpu", lambda p: [dict(sub_tile=(64, 64),
+                                             threads=512)])
+    rec = q.record()
+    assert rec["sub_tile"] == (64, 64) and rec["threads"] == 512
+    assert 48 * 1024 < rec["smem_bytes"] <= gk._SMEM_LIMIT
+    assert "constexpr int THREADS = 512;" in q.source
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in q.source
+    fn = _host_build(q, tmp_path)
+    host = torch.zeros(tuple(reversed(q.extents)), dtype=torch.float32)
+    assert fn(*gk.launch_args(q, inputs, rmins, host)) == 0
+    plain = gk.run_plain(q, inputs, rmins, _p, torch.device("cpu"))
+    np.testing.assert_allclose(host.numpy(), plain.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_array_equal(plain.numpy(), out)
+
+
+# (dtype, input width): row strides of 64 B (u8: 16-byte copies), 45 B (u8:
+# by element), 104 B (u16: 8-byte copies), 148 B (f32: 4-byte copies) and
+# 192 B (f32: 16-byte copies); the member reads x - 3 .. x + 2, so windows
+# start off every alignment, and the blocks at the border leave the region
+STAGE_CASES = [("uint8", 64), ("uint8", 45), ("uint16", 52),
+               ("float32", 37), ("float32", 48)]
+
+
+def _stage_pipeline(m, dtype, a_np, device="cpu"):
+    t = {"uint8": m.UInt(8), "uint16": m.UInt(16),
+         "float32": m.Float(32)}[dtype]
+    inp = m.ImageParam(t, 2, "inp")
+    x, y = m.Var("x"), m.Var("y")
+    xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+    e = m.repeat_edge(inp)
+    p, c = m.Func("p"), m.Func("c")
+    wide = m.Float(32) if dtype == "float32" else m.Int(32)
+    p[x, y] = m.cast(wide, e[x - 3, y]) + m.cast(wide, e[x + 2, y - 1]) * 2
+    c[x, y] = p[x, y] - p[x + 1, y + 1]
+    c.tile(x, y, xo, yo, xi, yi, 16, 8)
+    p.compute_at(c, xo)
+    inp.set(torch.from_numpy(a_np).to(device) if m is ht else a_np)
+    return m.Pipeline(c)
+
+
+def _stage_input(dtype, w, h=30):
+    rng = np.random.default_rng(13)
+    if dtype == "float32":
+        return rng.uniform(-3, 3, (h, w)).astype(np.float32)
+    return rng.integers(0, 250 if dtype == "uint8" else 60000, (h, w)) \
+        .astype(dtype)
+
+
+def _stage_golden(a):
+    """c over [0, w) x [0, h) of the input edge-clamped, in i64 or f32."""
+    h, w = a.shape
+    wide = a.astype(np.float32 if a.dtype == np.float32 else np.int64)
+
+    def e(xs, ys):
+        return wide[np.clip(ys, 0, h - 1)[:, None], np.clip(xs, 0, w - 1)]
+
+    def p(xs, ys):
+        return e(xs - 3, ys) + e(xs + 2, ys - 1) * 2
+    xs, ys = np.arange(w), np.arange(h)
+    return p(xs, ys) - p(xs + 1, ys + 1)
+
+
+@pytest.mark.parametrize("dtype,w", STAGE_CASES)
+def test_window_staging_on_host_matches_plain_version(dtype, w, tmp_path):
+    """The g++ build stages each window row by row in pieces of the copy
+    unit (16, 8 or 4 bytes, or by element) where it lies inside the input,
+    and element by element, edge-replicated, where it leaves it; both kinds
+    of blocks occur, and the output equals the plain version and the
+    golden."""
+    a = _stage_input(dtype, w)
+    pipe = _stage_pipeline(ht, dtype, a)
+    before = sum(gk.rejects.values())
+    out = pipe.realize([w, a.shape[0]], device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    gold = _stage_golden(a)
+    if dtype == "float32":
+        np.testing.assert_allclose(out, gold, rtol=1e-6, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(out, gold)
+    plan, inputs, rmins, _p, _r = gk.group_calls(pipe, "cpu")[0]
+    (win,) = plan.windows
+    assert win.pitch() * gk.itemsize(win.type) % 16 == 0
+    inside = []
+    for x0, y0 in gk._origins(plan):
+        box = gk._stage_box(win, x0, y0)
+        inside.append(all(lo >= 0 and lo + ext <= n for (lo, ext), n in
+                          zip(box, (w, a.shape[0]))))
+    assert any(inside) and not all(inside)
+    assert any(gk._stage_box(win, x0, y0)[0][0] % 16
+               for x0, y0 in gk._origins(plan))
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros(out.shape, dtype=torch.from_numpy(out).dtype)
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,h,tile,sub", RAGGED)
+def test_ragged_tile_kernel_matches_plain_version_on_the_card(w, h, tile,
+                                                              sub):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = np.random.default_rng(8).integers(-500, 500, (h + 4, w + 4)) \
+        .astype(np.int32)
+    pipe = _ragged_pipeline(ht, a, tile, "cuda")
+    launches = gk.launches
+    out = pipe.realize([w, h])
+    assert gk.launches == launches + 1
+    replan = None if sub is None else (
+        lambda p: [dict(sub_tile=sub, threads=128)])
+    plan, inputs, rmins, params, _r = gk.group_calls(pipe, None, replan)[0]
+    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
+    torch.cuda.synchronize()
+    assert torch.equal(gk.launch(plan, inputs, rmins), plain)
+    assert torch.equal(out.data, plain)
+
+
+@pytest.mark.gpu
+def test_plan_above_48kb_with_512_threads_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    app, _data = _torch_app("linear_blur", device="cuda", width=200,
+                            height=160)
+    app.realize()
+    (q, inputs, rmins, params, _r), = gk.group_calls(
+        app.pipeline, None, lambda p: [dict(sub_tile=(64, 64),
+                                            threads=512)])
+    assert q.record()["smem_bytes"] > 48 * 1024 and q.threads == 512
+    plain = gk.run_plain(q, inputs, rmins, params, inputs[0].device)
+    got = gk.launch(q, inputs, rmins)
+    torch.cuda.synchronize()
+    assert (got.double() - plain.double()).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,w", STAGE_CASES)
+def test_window_staging_kernel_matches_plain_version_on_the_card(dtype, w):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = _stage_input(dtype, w)
+    pipe = _stage_pipeline(ht, dtype, a, "cuda")
+    launches = gk.launches
+    out = pipe.realize([w, a.shape[0]])
+    assert gk.launches == launches + 1
+    plan, inputs, rmins, params, _r = gk.group_call(pipe)
     plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
     torch.cuda.synchronize()
     assert torch.equal(out.data, plain)

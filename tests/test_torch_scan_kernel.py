@@ -148,3 +148,148 @@ def test_kernel_matches_plain_version_on_the_card(body, shape, axis,
     plain = scan_kernel.linear_scan_plain(b, init, axis, backward, **kw)
     torch.cuda.synchronize()
     assert (out - plain).abs().max().item() <= 1e-5
+
+
+# The segmented source (32 lines by 128-element segments, look-back between
+# segments): (shape, scan axis, offset) with N not a multiple of the
+# segment; M == 1 (the contiguous axis, staged through shared memory, by
+# 16-byte loads at offset 0 and by element at offset 1, where the base is
+# not 16-byte aligned) and M > 1 (lanes along m); lines not a multiple of
+# 32; the last two with few line tiles and several segments, so that the
+# host build's waves of blocks look back over several published pairs
+# before an inclusive value
+SEG_SHAPES = [((5, 37, 300), 2, 0), ((5, 37, 300), 2, 1), ((300, 70), 0, 0),
+              ((3, 261, 40), 1, 1), ((40, 700), 1, 0), ((700, 20), 0, 1)]
+# coefficients: a = 1 (a running sum), a constant 0.9, a per-element a with
+# zeros (the predicated case: the recurrence restarts), a per-element a
+SEG_COEFS = ["one", "const", "zeros", "general"]
+
+
+def _seg_inputs(shape, axis, coef, seed=4):
+    rng = np.random.default_rng(seed)
+    b = rng.standard_normal(shape).astype(np.float32)
+    ishape = list(shape)
+    ishape[axis] = 1
+    init = rng.standard_normal(ishape).astype(np.float32)
+    a = rng.uniform(-0.95, 0.95, shape).astype(np.float32)
+    if coef == "zeros":
+        a[rng.random(shape) < 0.3] = 0.0
+    kw = {"one": dict(a_const=1.0), "const": dict(a_const=0.9)}.get(coef)
+    return a, b, init, kw
+
+
+def _offset(t, offset):
+    """t's values in a tensor whose data starts `offset` elements into a
+    16-byte-aligned buffer."""
+    buf = torch.zeros(t.numel() + 8, dtype=t.dtype)
+    v = buf[offset:offset + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.fixture(scope="module")
+def scan_host_lib(tmp_path_factory):
+    """The g++ build of csrc/scan_kernel.cu, once for the module."""
+    return scan_kernel.bind(_host_build(tmp_path_factory.mktemp("scan"),
+                                        "scan_kernel"))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("coef", SEG_COEFS)
+@pytest.mark.parametrize("shape,axis,offset", SEG_SHAPES)
+def test_segmented_source_on_host_matches_plain_and_jax(shape, axis, offset,
+                                                        coef, backward,
+                                                        scan_host_lib):
+    """The g++ build runs the card's blocks in ticket order with the same
+    segment arithmetic and look-back: equal to the plain version and to the
+    JAX package's linear_scan (Pallas in interpret mode) within rtol 1e-4 /
+    atol 1e-5."""
+    import jax.numpy as jnp
+    from halide_tpu.ops import pallas_scan as ps
+    lib = scan_host_lib
+    a, b, init, kw = _seg_inputs(shape, axis, coef)
+    bt = _offset(torch.from_numpy(b), offset)
+    it = torch.from_numpy(init)
+    if kw is None:
+        kw_t = dict(a=_offset(torch.from_numpy(a), offset))
+        kw_j = dict(a=jnp.asarray(a))
+    else:
+        kw_t, kw_j = kw, kw
+    out = _offset(torch.zeros(shape), offset)
+    assert scan_kernel.call(lib, out, bt, it, axis, backward, **kw_t) == 0
+    want = scan_kernel.linear_scan_plain(bt, it, axis, backward, **kw_t)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    ref = np.asarray(ps.linear_scan(jnp.asarray(b), jnp.asarray(init), axis,
+                                    backward, interpret=True, **kw_j))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("sub", [16, 32])
+@pytest.mark.parametrize("shape,axis,offset", [SEG_SHAPES[1], SEG_SHAPES[4],
+                                               SEG_SHAPES[5]])
+def test_segment_lengths_on_host(shape, axis, offset, sub, scan_host_lib):
+    """K2a at 16 and 32 elements a thread (segments of 128 and 256) equals
+    the plain version; K2b takes 16 only, and refuses 32 with a code."""
+    a, b, init, _kw = _seg_inputs(shape, axis, "const")
+    bt = _offset(torch.from_numpy(b), offset)
+    it = torch.from_numpy(init)
+    for backward in (False, True):
+        out = _offset(torch.zeros(shape), offset)
+        assert scan_kernel.call(scan_host_lib, out, bt, it, axis, backward,
+                                a_const=0.9, sub=sub) == 0
+        want = scan_kernel.linear_scan_plain(bt, it, axis, backward,
+                                             a_const=0.9)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    rc = scan_kernel.call(scan_host_lib, torch.zeros(shape), bt, it, axis,
+                          False, a=torch.from_numpy(a), sub=sub)
+    assert (rc == 0) == (sub == 16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sub", [16, 32])
+def test_segment_lengths_on_the_card(sub):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for shape, axis, offset in SEG_SHAPES:
+        _a, b, init, _kw = _seg_inputs(shape, axis, "const")
+        bt = torch.empty(b.size + 8, device="cuda")[offset:offset + b.size] \
+            .view(shape).copy_(torch.from_numpy(b))
+        it = torch.from_numpy(init).cuda()
+        for backward in (False, True):
+            out = torch.empty_like(bt)
+            scan_kernel.launch(out, bt, it, axis, backward, a_const=0.9,
+                               sub=sub)
+            plain = scan_kernel.linear_scan_plain(bt, it, axis, backward,
+                                                  a_const=0.9)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(out.cpu().numpy(),
+                                       plain.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("coef", SEG_COEFS)
+@pytest.mark.parametrize("shape,axis,offset", SEG_SHAPES)
+def test_segmented_kernel_matches_plain_version_on_the_card(shape, axis,
+                                                            offset, coef,
+                                                            backward):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a, b, init, kw = _seg_inputs(shape, axis, coef)
+    bt = torch.empty(b.size + 8, device="cuda")[offset:offset + b.size] \
+        .view(shape).copy_(torch.from_numpy(b))
+    it = torch.from_numpy(init).cuda()
+    kw_t = kw if kw is not None else dict(a=torch.from_numpy(a).cuda())
+    out = torch.empty(b.size + 8, device="cuda")[offset:offset + b.size] \
+        .view(shape)
+    body = "const" if kw is not None else "general"
+    before = scan_kernel.launches[body]
+    scan_kernel.linear_scan(out, bt, it, axis, backward, **kw_t)
+    assert scan_kernel.launches[body] == before + 1
+    plain = scan_kernel.linear_scan_plain(bt, it, axis, backward, **kw_t)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)

@@ -1,83 +1,244 @@
-"""Walk-length sweep of the stencil-group kernel's band walk on the card.
+"""Sweeps of the stencil-group kernel (K1) on the card: sub-tile x threads,
+the staging split, and the band walk's length.
 
-For the first band-walk group of linear_blur (1536x2560x3 f32),
-stencil_chain (1536x2560 u16, 32 stencils: the last group, as the others
-span two tiles across) and camera_pipe (2560x1920, tile 2560x128), at the
-canonical sizes: the kernel's device time as planned
-(a walk of one sub-tile a block), with the band walk off (one sub-tile per
-block) and, on the same build, walking 1, 2, 4, 8 and 16 sub-tiles a block
-with one window buffer, and with two where the walking windows are staged
-ahead by cp.async; each checked equal to the walk-off output. Also the time
-of blur's and local_laplacian's groups, which do not walk.
+    python tools/k1_walk_sweep.py [--out F]  # all three, then the fit
+    python tools/k1_walk_sweep.py --fit F    # only the fit, from a saved F
 
-    python tools/k1_walk_sweep.py
+At the canonical sizes of `chip_smoke.py`, for stencil_chain's first and
+last groups (1536x2560 u16, 32 stencils), camera_pipe (2560x1920, tile
+2560x128), linear_blur (1536x2560x3 f32), local_laplacian (1536x2560x3
+u16), blur (2560x1536 u16) and interpolate (1536x2560x4 f32):
 
-Needs one CUDA card; prints the card's name and power limit, then one JSON
-line per group: {"app", "func", "grid", "planned": [walk, n_buf],
-"ms": {"planned": t, "off": t, "<walk>x<n_buf>": t, ...}}. Times are
-CUDA-event medians of 30 launches with L2 flushed between them, the card
-held while the host enqueues (chip_smoke.event_ms).
+- sub-tile x threads: each group planned again at sub-tiles from 32x16 to
+  256x64 and 128x128 (`SUB_TILES`), and 128, 256, 512 and 1024 threads a
+  block (where they fit the 227 KB a block can take), every point built
+  (all builds started together), checked equal to the planned kernel's
+  output and timed. Then the fit: the planner's order
+  (`group_kernel.plan_key`) ranks each group's points for a grid of its
+  three constants (`_WARPS_FULL`, `_BYTE_OPS`, `_SYNC`), and the triple
+  whose picks lose least against each group's fastest point (the geometric
+  mean of the time ratios) is printed;
+- the staging split: the planned kernel against the same plan built to
+  only stage its windows, and to only compute (from whatever shared memory
+  holds), for the bytes-bound groups (blur, linear_blur, interpolate,
+  local_laplacian) and stencil_chain's last and camera_pipe's;
+- the walk: the band-walk groups (linear_blur, stencil_chain's last,
+  camera_pipe) walking 1, 2 and 4 sub-tile rows a block, with one window
+  buffer and with two, each checked equal to the walk off.
+
+Needs one CUDA card; prints the card's name and power limit, ptxas's report
+(registers, spills) of each planned build, one JSON line per group and
+sweep, and the fit. The full point list goes to `--out` (by default
+build/k1_sweep.json).
+Times are CUDA-event medians of 30 launches with L2 flushed between them,
+the card held while the host enqueues (chip_smoke.event_ms).
 """
 from __future__ import annotations
 
+import argparse
 import copy
+import itertools
 import json
+import math
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+SUB_TILES = [(32, 16), (64, 16), (128, 16), (256, 16), (32, 32), (64, 32),
+             (32, 64), (64, 64), (128, 32), (128, 64), (32, 128), (64, 128),
+             (128, 128), (256, 32), (256, 64)]
+WARPS_FULL = (4, 8, 12, 16, 24, 32, 48, 64)
+BYTE_OPS = (0.0, 1.0, 2.5, 5.0, 7.5, 10.0, 15.0, 20.0, 40.0)
+SYNC = (0.0, 2e3, 3.2e4, 1.28e5, 2.56e5, 5.12e5, 1e6, 2e6, 4e6)
+
+
+def fit(groups):
+    """-> (the best (_WARPS_FULL, _BYTE_OPS, _SYNC), its geometric-mean
+    loss, the loss of every triple, and each group's pick at the best)."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    saved = gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC
+    losses = {}
+    try:
+        for w, b, y in itertools.product(WARPS_FULL, BYTE_OPS, SYNC):
+            gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC = w, b, y
+            logs = []
+            for g in groups:
+                pts = g["points"]
+                best = min(p["ms"] for p in pts)
+                pick = min(pts, key=lambda p: gk.plan_key(p["terms"]))
+                logs.append(math.log(pick["ms"] / best))
+            losses[(w, b, y)] = math.exp(sum(logs) / len(logs))
+        wb = min(losses, key=lambda k: (losses[k], k))
+        gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC = wb
+        picks = {g["name"]: min(g["points"],
+                                key=lambda p: gk.plan_key(p["terms"]))
+                 for g in groups}
+    finally:
+        gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC = saved
+    return wb, losses[wb], losses, picks
+
+
+def print_fit(groups, saved_rule):
+    wb, loss, losses, picks = fit(groups)
+    print(json.dumps({"fit": {"warps_full": wb[0], "byte_ops": wb[1],
+                              "sync": wb[2], "loss": loss,
+                              "loss_of_the_rule_as_built": losses.get(
+                                  saved_rule),
+                              "picks": {n: [p["sub_tile"], p["threads"],
+                                            p["ms"]]
+                                        for n, p in picks.items()},
+                              "fastest": {g["name"]: min(
+                                  ([p["sub_tile"], p["threads"], p["ms"]]
+                                   for p in g["points"]),
+                                  key=lambda q: q[2]) for g in groups}}}),
+          flush=True)
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fit", help="a k1_sweep.json to fit the rule to")
+    ap.add_argument("--out", default=str(ROOT / "build" / "k1_sweep.json"),
+                    help="where to write the sweep's points")
+    args = ap.parse_args()
+    from halide_tpu_torch.ops import group_kernel as gk
+    rule = (gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC)
+    if args.fit:
+        print_fit(json.loads(Path(args.fit).read_text())["groups"], rule)
+        return
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import chip_smoke as cs
-    from halide_tpu_torch.apps import (blur, camera_pipe, linear_blur,
-                                       local_laplacian, stencil_chain)
-    from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.apps import (blur, camera_pipe, interpolate,
+                                       linear_blur, local_laplacian,
+                                       stencil_chain)
+    from halide_tpu_torch.ops import build
     print(cs.card_line(), flush=True)
-    makers = [lambda: blur.build(2560, 1536, tile=(256, 128)),
-              lambda: linear_blur.build(1536, 2560),
-              lambda: stencil_chain.build(1536, 2560, 32, kernel=True),
-              lambda: camera_pipe.build(2560, 1920, kernel=True,
-                                        tile=(2560, 128)),
-              lambda: local_laplacian.build(1536, 2560)]
-
+    # (name, maker, which group calls, sub-tile sweep, split, walk)
+    apps = [
+        ("stencil_chain", lambda: stencil_chain.build(1536, 2560, 32,
+                                                      kernel=True),
+         (0, 3), True, (3,), (3,)),
+        ("camera_pipe", lambda: camera_pipe.build(2560, 1920, kernel=True,
+                                                  tile=(2560, 128)),
+         (0,), True, (0,), (0,)),
+        ("linear_blur", lambda: linear_blur.build(1536, 2560), (0,), True,
+         (0,), (0,)),
+        ("local_laplacian", lambda: local_laplacian.build(1536, 2560), (0,),
+         True, (0,), ()),
+        ("blur", lambda: blur.build(2560, 1536, tile=(256, 128)), (0,),
+         True, (0,), ()),
+        ("interpolate", lambda: interpolate.build(1536, 2560), (0,), True,
+         (0,), ()),
+    ]
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
     def time_of(plan, inputs, rmins):
         return cs.event_ms(lambda: gk.launch(plan, inputs, rmins), 30,
                            scratch.zero_, hold=True)
 
-    for make in makers:
+    # plan every point first, then build them all together
+    work = []          # (label, planned call, [(kind, key, plan)], walk)
+    for name, make, which, sweep, split, walks in apps:
         app = make()
         app.bind(app.make_inputs(0))
         app.realize()
         calls = gk.group_calls(app.pipeline)
-        walking = [c for c in calls if c[0].band_walk]
-        plan, inputs, rmins, _params, _r = (walking or calls)[0]
-        off = copy.copy(plan)
-        off.band_walk = False
-        want = gk.launch(off, inputs, rmins)
-        ms = {"planned": time_of(plan, inputs, rmins),
-              "off": time_of(off, inputs, rmins)}
-        if plan.band_walk:
-            for walk in (1, 2, 4, 8, 16):
-                for n_buf in (1, 2) if plan.prefetch == "cp.async" else (1,):
-                    q = copy.copy(plan)
-                    q.walk, q.n_buf = walk, n_buf
-                    if not torch.equal(gk.launch(q, inputs, rmins), want):
-                        sys.exit(f"{app.name}: walk {walk}, {n_buf} "
-                                 "buffers changes the values")
-                    ms[f"{walk}x{n_buf}"] = time_of(q, inputs, rmins)
-        rec = plan.record()
-        print(json.dumps({"app": app.name, "func": rec["func"],
-                          "grid": rec["grid"], "sub_tile": rec["sub_tile"],
-                          "prefetch": plan.prefetch,
-                          "planned": [rec["walk"], rec["n_buf"]],
-                          "ms": ms}), flush=True)
+        for ci in sorted(set(which) | set(split) | set(walks)):
+            plan, inputs, rmins, params, _r = calls[ci]
+            kws = []
+            if ci in which and sweep:
+                kws += [dict(sub_tile=tuple(c["sub_tile"]),
+                             threads=c["threads"])
+                        for c in plan.candidates
+                        if tuple(c["sub_tile"]) in SUB_TILES]
+            if ci in split:
+                kws += [dict(sub_tile=(plan.sx, plan.sy),
+                             threads=plan.threads, part=part)
+                        for part in ("stage", "compute")]
+            variants = [
+                ("split" if q.part != "all" else "point",
+                 q.part if q.part != "all" else (q.sx, q.sy, q.threads), q)
+                for q, *_x in gk.group_calls(
+                    app.pipeline,
+                    replan=lambda p, f=plan.f, kws=kws: kws if p.f is f
+                    else [])]
+            work.append((f"{name}/{plan.f.name}",
+                         (plan, inputs, rmins, params), variants,
+                         ci in walks))
+    plans = {}
+    for _label, (plan, *_r), variants, _w in work:
+        plans[plan.symbol] = plan
+        for _k, _key, q in variants:
+            plans[q.symbol] = q
+    print(f"{len(plans)} sources to build", flush=True)
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(gk.build, p) for p in plans.values()]:
+            f.result()
+    report = {"card": cs.card_line(), "rule": list(rule), "groups": [],
+              "split": [], "walk": []}
+    for label, (plan, inputs, rmins, _params), variants, walk in work:
+        print(json.dumps({"group": label, "planned": plan.record(),
+                          "ptxas": build.ptxas.get(plan.symbol, [])}),
+              flush=True)
+        want = gk.launch(plan, inputs, rmins)
+        t_plan = time_of(plan, inputs, rmins)
+        points = []
+        for kind, vkey, q in variants:
+            if kind != "point":
+                continue
+            if not torch.equal(gk.launch(q, inputs, rmins), want):
+                sys.exit(f"{label}: sub-tile {vkey} changes the values")
+            terms = next(c for c in q.candidates
+                         if c["threads"] == vkey[2])
+            points.append({"sub_tile": list(vkey[:2]), "threads": vkey[2],
+                           "ms": time_of(q, inputs, rmins),
+                           "terms": terms,
+                           "ptxas": build.ptxas.get(q.symbol, [])})
+        if points:
+            report["groups"].append({"name": label, "planned_ms": t_plan,
+                                     "planned": [plan.sx, plan.sy,
+                                                 plan.threads],
+                                     "points": points})
+            fast = min(points, key=lambda p: p["ms"])
+            print(json.dumps({"sweep": label, "planned": [
+                plan.sx, plan.sy, plan.threads, t_plan], "fastest": [
+                fast["sub_tile"], fast["threads"], fast["ms"]],
+                "points": [[p["sub_tile"], p["threads"], round(p["ms"], 4)]
+                           for p in points]}), flush=True)
+        parts = {k: q for kind, k, q in variants if kind == "split"}
+        if parts:
+            ms = {"all": t_plan}
+            ms.update({k: time_of(q, inputs, rmins) for k, q in parts.items()})
+            ms["all_again"] = time_of(plan, inputs, rmins)
+            report["split"].append({"group": label, "ms": ms})
+            print(json.dumps({"split": label, "ms": ms}), flush=True)
+        if walk and plan.band_walk:
+            off = copy.copy(plan)
+            off.band_walk = False
+            base = gk.launch(off, inputs, rmins)
+            ms = {"planned": t_plan, "off": time_of(off, inputs, rmins)}
+            for w, n_buf in itertools.product((1, 2, 4), (1, 2)):
+                q = copy.copy(plan)
+                q.walk, q.n_buf = w, n_buf
+                try:
+                    q.shape()
+                except ValueError:         # two buffers pass 227 KB
+                    continue
+                if not torch.equal(gk.launch(q, inputs, rmins), base):
+                    sys.exit(f"{label}: walk {w}, {n_buf} buffers changes "
+                             "the values")
+                ms[f"{w}x{n_buf}"] = time_of(q, inputs, rmins)
+            report["walk"].append({"group": label, "ms": ms})
+            print(json.dumps({"walk": label, "ms": ms}), flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report))
+    print_fit(report["groups"], rule)
 
 
 if __name__ == "__main__":
