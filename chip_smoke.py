@@ -27,7 +27,15 @@ Then it drives the port's main paths through `App.bind` /
   window, the counterpart of the JAX package's 8-fold repeat;
 - iir_blur (1536x2560x3 f32): four constant-coefficient scans, K2a (also
   timed at both segment lengths the kernel takes);
-- hist (1536x2560x3 u8): one row histogram, K3;
+- hist (1536x2560x3 u8): one row histogram, K3; then K3 alone at the plan
+  its rule gives and at its first design's geometry in this build (8 rows,
+  256 threads, 4-byte loads, 8 in flight), on hist's lin, the same values
+  transposed (rows_fast), offset by one element (base not 16-byte
+  aligned), cut to a width of 1535 (4-byte loads), one bin a row and a ramp
+  at that shape, and 256 x 65,536 and 64 x 262,144 uniform bins (the last
+  split over a cluster), each exactly equal to the plain version, then
+  timed (hist's lin also through builds with counting, and with the loads
+  too, compiled out);
 - a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
 
 Each kernel's launch count is set to 0 just before its path's realize and
@@ -426,6 +434,71 @@ def div8_group(width, height, seed=0):
     return hl.Pipeline(c), [width, height], pv[:, :-1] + pv[:, 1:]
 
 
+def k3_inputs(lin_h, K):
+    """K3's inputs beyond hist's lin: at its shape the same values in the
+    transposed layout (neighbouring rows adjacent: rows_fast), in a view
+    offset by one element (16-byte loads after a head of three elements a
+    row), and cut to 1535 columns, contiguous (rows of a width that is not
+    a multiple of 4: 4-byte loads); the two contention inputs, made without
+    randomness (one bin a row, lin[r, :] = r % K, as a flat image region
+    gives; a ramp, lin[r, p] = (p K) // P, runs of P / K equal bins, as a
+    smooth gradient gives); and bins uniform in [-2, K + 3) from a seeded
+    generator in 256 rows of 65,536 and in 64 rows of 262,144 (too few rows
+    to fill the card: the plan splits each row over a cluster)."""
+    R, P = lin_h.shape
+    dev = lin_h.device
+    flat = torch.empty(R * P + 1, device=dev, dtype=torch.int32)
+    flat[1:] = lin_h.reshape(-1)
+    r = torch.arange(R, device=dev, dtype=torch.int32)[:, None]
+    p = torch.arange(P, device=dev, dtype=torch.int64)[None, :]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def uniform(rows, pixels):
+        return torch.randint(-2, K + 3, (rows, pixels), generator=gen,
+                             device=dev, dtype=torch.int32)
+    return {"rows_fast": lin_h.t().contiguous().t(),
+            "offset": flat[1:].view(R, P),
+            "odd_width": lin_h[:, :P - 1].contiguous(),
+            "one_bin": (r % K).expand(R, P).contiguous(),
+            "ramp": ((p * K) // P).to(torch.int32).expand(R, P).contiguous(),
+            "long_rows": uniform(256, 65536),
+            "cluster": uniform(64, 262144)}
+
+
+def k3_build(defines=(), patches=()):
+    """A build of K3's source (csrc/rowhist_kernel.cu) with `defines`
+    ((name, value) pairs) put before it and `patches` ((old, new) pairs,
+    each old found once) made in it, bound as the default build is: the
+    builds with parts compiled out (ROWHIST_PART) and tools/k3_sweep.py's
+    variants."""
+    from halide_tpu_torch.ops import build
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    text = (build.CSRC / "rowhist_kernel.cu").read_text()
+    for old, new in patches:
+        if text.count(old) != 1:
+            raise RuntimeError(f"K3 source patch not found once: {old!r}")
+        text = text.replace(old, new)
+    text = "".join(f"#define {k} {v}\n" for k, v in defines) + text
+    key = build.source_key("rowhist_kernel", text)
+    cu = build.BUILD_DIR / f"{key}.cu"
+    cu.parent.mkdir(parents=True, exist_ok=True)
+    cu.write_text(text)
+    return rk.bind(build.load(key, cu))
+
+
+def k3_call(lib, lin, K, scale, plan=None):
+    """K3 of the build `lib` on a CUDA lin at the rule's plan with `plan`
+    forced (not counted as a launch of the main path) -> the counts."""
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    out = torch.empty((lin.shape[0], K), dtype=torch.float32,
+                      device=lin.device)
+    rc = rk.call(lib, lin, K, scale, out,
+                 torch.cuda.current_stream(lin.device).cuda_stream, plan)
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
     """One row of the kernel table. `ops` is (f32, integer) operations:
@@ -489,9 +562,13 @@ def main():
     with ThreadPoolExecutor(8) as pool:
         jobs = [pool.submit(build.load_fixed, n)
                 for n in ("scan_kernel", "rowhist_kernel")]
+        # K3 with counting compiled out (1), and the loads too (2)
+        k3_parts = {n: pool.submit(k3_build, [("ROWHIST_PART", n)])
+                    for n in (1, 2)}
         jobs += [pool.submit(gk.build, p) for p in sources.values()]
-        for f in jobs:
+        for f in jobs + list(k3_parts.values()):
             f.result()
+        k3_parts = {n: f.result() for n, f in k3_parts.items()}
     for key, secs in build.builds:
         say(f"nvcc build {key}: {secs:.1f} s; ptxas: "
             f"{' | '.join(build.ptxas.get(key, []))}")
@@ -578,6 +655,8 @@ def main():
         raise SystemExit(f"hist: the main path did not go through K3 once "
                          f"({n_h} launches)")
     (lin_h, K_h, scale_h), _kw = calls_h[0]
+    plan_h = dict(rk.last_plan)
+    say(f"K3's plan at hist's lin: {plan_h}")
     k = rk.launch(lin_h, K_h, scale_h)
     p = rk.rowhist_plain(lin_h, K_h, scale_h)
     torch.cuda.synchronize()
@@ -588,6 +667,32 @@ def main():
         raise SystemExit("hist: K3 disagrees with its plain version")
     check_golden("hist", out_h.to_numpy(), app_h.reference(**data_h),
                  app_h.tolerance, app_h.atol)
+    # K3 beyond the main path: hist's lin at the first design's geometry,
+    # the transposed layout, the offset and odd-width views, the contention
+    # inputs and the cluster shape, each at the planned point and the first
+    # design's geometry, against the plain version
+    lins_k3 = dict(hist=lin_h, **k3_inputs(lin_h, K_h))
+    plans_k3 = {}
+    for n, lin in lins_k3.items():
+        want = rk.rowhist_plain(lin, K_h, scale_h)
+        for label, force in (("planned", None), ("first design's geometry",
+                                                 rk.OLD_DESIGN)):
+            got = rk.launch(lin, K_h, scale_h, plan=force)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"K3 at the {label} point on {n} disagrees "
+                                 "with its plain version")
+            if force is None:
+                plans_k3[n] = dict(rk.last_plan)
+        say(f"K3 on {n} {tuple(lin.shape)} stride {lin.stride()} base % 16 "
+            f"= {lin.data_ptr() % 16}: planned {plans_k3[n]} and the first "
+            "design's geometry equal the plain version (exact)")
+    if plans_k3["offset"]["unit"] != 16 or plans_k3["odd_width"]["unit"] != 4:
+        raise SystemExit(f"K3's offset view or odd width planned another "
+                         f"unit: {plans_k3['offset']}, {plans_k3['odd_width']}")
+    if plans_k3["cluster"]["cluster"] < 2:
+        raise SystemExit(f"K3 planned no cluster at 64 x 262144: "
+                         f"{plans_k3['cluster']}")
 
     phase("scan_general")
     pipe_g, golden_g = predicated_scan(1536, 2560)
@@ -750,8 +855,43 @@ def main():
         f"{p_ms:.2f} ms, whole realize {r_ms:.4f} ms")
 
     R, P = lin_h.shape
-    k_ms = event_ms(lambda: rk.launch(lin_h, K_h, scale_h), 30, flush,
-                    hold=True)
+
+    def k3_ms(lin, force, lib=None):
+        if lib is None:
+            return event_ms(lambda: rk.launch(lin, K_h, scale_h, plan=force),
+                            30, flush, hold=True)
+        return event_ms(lambda: k3_call(lib, lin, K_h, scale_h, force), 30,
+                        flush, hold=True)
+    # each K3 input at the planned point and the first design's geometry,
+    # in turns (planned, first, first, planned); the cluster shape also
+    # with the planned geometry on one block a row; hist's lin also through
+    # the builds with counting compiled out (loads only) and with the loads
+    # out too (launch, zeroing, merge and write only)
+    k3_by_input = {}
+    first = "first_design_geometry"
+    for n, lin in lins_k3.items():
+        plan = plans_k3[n]
+        t = {"planned": [], first: []}
+        for which in ("planned", first, first, "planned"):
+            t[which].append(k3_ms(lin, plan if which == "planned"
+                                  else rk.OLD_DESIGN))
+        if n == "cluster":
+            t["no_cluster"] = [k3_ms(lin, dict(plan, cluster=1))]
+        if n == "hist":
+            t["load_only"] = [k3_ms(lin, plan, k3_parts[1])]
+            t["merge_only"] = [k3_ms(lin, plan, k3_parts[2])]
+            t[first + "_load_only"] = [k3_ms(lin, rk.OLD_DESIGN,
+                                             k3_parts[1])]
+        nb = (lin.numel() + lin.shape[0] * K_h) * 4
+        k3_by_input[n] = dict(t, shape=list(lin.shape),
+                              stride=list(lin.stride()),
+                              bound_ms=nb / HBM_BYTES_PER_S * 1e3,
+                              plan={f: plan[f] for f in rk.PLAN_FIELDS + (
+                                  "grid", "resident", "smem_bytes")})
+        say(f"K3 on {n} on {card}: {t} ms (device); bound "
+            f"{nb / HBM_BYTES_PER_S * 1e6:.2f} us; plan "
+            f"{k3_by_input[n]['plan']}")
+    k_ms = statistics.median(k3_by_input["hist"]["planned"])
     p_ms = event_ms(lambda: rk.rowhist_plain(lin_h, K_h, scale_h), 3)
     rows = torch.arange(R, device="cuda", dtype=torch.int64)[:, None]
     lin64 = lin_h.to(torch.int64)
@@ -771,7 +911,10 @@ def main():
         "K3 row histogram (hist)", "halide_tpu_torch/ops/csrc/"
         "rowhist_kernel.cu", "halide_tpu/ops/onehot_mxu.py:103", n_h, err_h,
         k_ms, p_ms, nbytes, (0, 2 * lin_h.numel()), lib_ms,
-        realize_ms=r_ms))
+        realize_ms=r_ms, plan=k3_by_input["hist"]["plan"],
+        ms_first_design_geometry=statistics.median(
+            k3_by_input["hist"][first]),
+        by_input=k3_by_input))
     say(f"hist on {card}: K3 {k_ms:.4f} ms (device), plain {p_ms:.2f} ms, "
         f"bincount {lib_ms:.4f} ms (to completion), whole realize "
         f"{r_ms:.4f} ms; bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us "
