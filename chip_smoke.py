@@ -36,7 +36,19 @@ Then it drives the port's main paths through `App.bind` /
   split over a cluster), each exactly equal to the plain version, then
   timed (hist's lin also through builds with counting, and with the loads
   too, compiled out);
-- a where-predicated scan (1536x2560 f32): one per-element scan, K2b.
+- a where-predicated scan (1536x2560 f32): one per-element scan, K2b;
+- unsharp and harris (1536x2560x3 f32 in) and wavelet (1536x2560 f32) at
+  their default schedules, whole-array (no group kernel launch), each
+  against its golden and timed beside the reference Halide's GPU column;
+- unsharp and harris again with the output tiled 256x128 and the wide
+  producers computed at the tiles (`apps.tile_producers`): one K1 launch
+  each (harris's 1530x2554 output takes shifted-inwards last tiles, and
+  its compute_with pair sits inside the group);
+- a group of integer intrinsics (floor and round-to-zero division, bit
+  counts, reinterpret, recip of the bits; `intrinsic_group`) at 1536x2560
+  for i32, u16 and u32 lanes through K1, exactly equal to its plain version
+  and to the untiled pipeline's whole-array values; a u64 pipeline
+  (`u64_pipeline`) against numpy.
 
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan, and
@@ -434,6 +446,128 @@ def div8_group(width, height, seed=0):
     return hl.Pipeline(c), [width, height], pv[:, :-1] + pv[:, 1:]
 
 
+def intrinsic_group(m, dtype, a, b, tile=None):
+    """out[x, y] over the integer Type of numpy dtype `dtype`: the xor of
+    these operations of a and b, so that each point does all of them and a
+    wrong bit in any shows: floor division and modulo, popcount, clz, ctz,
+    division and remainder rounded toward zero, a logical or arithmetic
+    shift through reinterpret, and, for 32 and 64 bits, recip of the bits
+    read as a float (the exponent's top bit cleared and the next one set: a
+    normal float in, no inf, NaN or subnormal, which XLA's CPU flushes to
+    0), read back as bits. `m` is the package (this port, or the JAX
+    package in the tests); `a` and `b` are set on the ImageParams as given
+    (tensors for the port). With `tile` the output is tiled over x, y: the
+    group kernel's path, with a and b its windows. -> the pipeline."""
+    bits = np.dtype(dtype).itemsize * 8
+    signed = np.dtype(dtype).kind == "i"
+    t = m.Int(bits) if signed else m.UInt(bits)
+    A, B = m.ImageParam(t, 2, "a"), m.ImageParam(t, 2, "b")
+    x, y = m.Var("x"), m.Var("y")
+    av, bv = A[x, y], B[x, y]
+    other = m.UInt(bits) if signed else m.Int(bits)
+    planes = [av / bv, av % bv, m.popcount(av),
+              m.count_leading_zeros(av), m.count_trailing_zeros(av),
+              m.div_round_to_zero(av, bv), m.mod_round_to_zero(av, bv),
+              m.reinterpret(t, m.reinterpret(other, av) >> 1)]
+    if bits >= 32:
+        top = (av >> (bits - 1)) << (bits - 1)
+        finite = top | m.cast(t, 1 << (bits - 3)) \
+            | (av & m.cast(t, (1 << (bits - 2)) - 1))
+        planes.append(m.reinterpret(t, m.fast_inverse(
+            m.reinterpret(m.Float(bits), finite))))
+    value = planes[0]
+    for p in planes[1:]:
+        value = value ^ p
+    out = m.Func("intrinsics")
+    out[x, y] = value
+    if tile is not None:
+        xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+        out.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+    A.set(a)
+    B.set(b)
+    return m.Pipeline(out)
+
+
+def u64_pipeline(m, a, b, f):
+    """out[x, y, c] in u64 of u64 inputs a, b and an f64 input f: plane c
+    is one operation that reads u64 as unsigned (or wraps): +, -, *, /, %,
+    min, max, the compares, shifts by b mod 64 and by b, absd, conversion
+    to f64 and f32 (as bits), and f converted to u64. `m` and the inputs
+    as `intrinsic_group`'s. -> (pipeline, the numpy golden of numpy a, b,
+    f)."""
+    t = m.UInt(64)
+    A, B = m.ImageParam(t, 2, "a"), m.ImageParam(t, 2, "b")
+    F = m.ImageParam(m.Float(64), 2, "f")
+    x, y, c = m.Var("x"), m.Var("y"), m.Var("c")
+    av, bv, fv = A[x, y], B[x, y], F[x, y]
+    s = bv % 64
+    one, two = m.cast(t, 1), m.cast(t, 2)
+    planes = [av + bv, av - bv, av * bv, av / bv, av % bv,
+              m.min(av, bv), m.max(av, bv),
+              m.select(av < bv, one, 0) + m.select(av <= bv, two, 0)
+              + m.select(av > bv, m.cast(t, 4), 0),
+              av >> s, av << s, av >> bv, m.absd(av, bv),
+              m.reinterpret(t, m.cast(m.Float(64), av)),
+              m.cast(t, m.reinterpret(m.UInt(32), m.cast(m.Float(32), av))),
+              m.cast(t, fv)]
+    out = m.Func("u64_ops")
+    out[x, y, c] = m.mux(c, planes)
+    A.set(a)
+    B.set(b)
+    F.set(f)
+
+    def golden(a, b, f):
+        u = np.uint64
+        with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+            sh = b % u(64)
+            fz = np.where(np.isnan(f) | (f < 0), 0.0, f)
+            fu = np.where(fz >= 2.0 ** 64, np.iinfo(u).max,
+                          np.minimum(fz, 2.0 ** 64 - 2048).astype(u))
+            out = [a + b, a - b, a * b, np.where(b == 0, u(0), a // np.maximum(
+                b, u(1))), np.where(b == 0, u(0), a % np.maximum(b, u(1))),
+                np.minimum(a, b), np.maximum(a, b),
+                (a < b) * u(1) + (a <= b) * u(2) + (a > b) * u(4),
+                a >> sh, a << sh, np.where(b >= u(64), u(0), a >> sh),
+                np.where(a > b, a - b, b - a),
+                a.astype(np.float64).view(u),
+                a.astype(np.float32).view(np.uint32).astype(u), fu]
+        return np.stack([np.asarray(o, u) for o in out])
+    return m.Pipeline(out), golden
+
+
+def run_whole(app, data, note):
+    """An app whose schedule tiles nothing: realize on the card with K1's
+    counts at 0 (they must stay 0: every stage whole-array), and the output
+    against the golden under the app's own rule."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    gk.launches = 0
+    gk.rejects.clear()
+    out = app.realize()
+    torch.cuda.synchronize()
+    say(f"{note}: realize ok, group kernel launches {gk.launches}, rejects "
+        f"{dict(gk.rejects)}")
+    if gk.launches or gk.rejects:
+        raise SystemExit(f"{app.name}: the whole-array schedule launched "
+                         "the group kernel or planned a group")
+    check_golden(app.name, out.to_numpy(), app.reference(**data),
+                 app.tolerance, app.atol, app.mismatch_frac)
+
+
+def intrinsic_inputs(dtype, width, height, seed=0):
+    """a, b over the whole range of `dtype` on the card, b with a zero every
+    fifth element and a one every seventh, and all ones (-1 or the maximum)
+    every eleventh."""
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(seed)
+    a, b = (rng.integers(info.min, info.max, width * height, endpoint=True,
+                         dtype=dtype) for _ in range(2))
+    b[::5] = 0
+    b[1::7] = 1
+    b[2::11] = -1 if info.min < 0 else info.max
+    return (torch.from_numpy(v.reshape(height, width)).cuda()
+            for v in (a, b))
+
+
 def k3_inputs(lin_h, K):
     """K3's inputs beyond hist's lin: at its shape the same values in the
     transposed layout (neighbouring rows adjacent: rows_fast), in a view
@@ -530,9 +664,12 @@ def main():
     card = card_line()
     say(f"{name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     import halide_tpu_torch  # noqa: F401  (fails where the port is absent)
-    from halide_tpu_torch.apps import (App, blur, camera_pipe, hist,
-                                       iir_blur, interpolate, linear_blur,
-                                       local_laplacian, stencil_chain)
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.apps import (TILED_PRODUCERS, App, blur,
+                                       camera_pipe, harris, hist, iir_blur,
+                                       interpolate, linear_blur,
+                                       local_laplacian, stencil_chain,
+                                       tile_producers, unsharp, wavelet)
     from halide_tpu_torch.ops import build
     from halide_tpu_torch.ops import group_kernel as gk
     from halide_tpu_torch.ops import rowhist_kernel as rk
@@ -549,12 +686,30 @@ def main():
     pipe_8, sizes_8, golden_8 = div8_group(1536, 2560)
     app_8 = App("div8", pipe_8, [], lambda seed=0: {},
                 lambda: golden_8, sizes_8, tolerance=1e-6, atol=1e-6)
+    app_un = unsharp.build(1536, 2560)
+    app_hr = harris.build(1536, 2560)
+    app_wv = wavelet.build(1536, 2560)
+    app_unt = unsharp.build(1536, 2560)
+    app_hrt = harris.build(1536, 2560)
+    for app in (app_unt, app_hrt):
+        tile_producers(ht, app.pipeline, (256, 128),
+                       TILED_PRODUCERS[app.name])
+    apps_in = {}                  # the intrinsics group's App, per lanes
+    for dt in ("int32", "uint16", "uint32"):
+        a_in, b_in = intrinsic_inputs(dt, 1536, 2560)
+        whole = intrinsic_group(ht, dt, a_in, b_in).realize(
+            [1536, 2560]).to_numpy()
+        apps_in[dt] = App(f"intrinsics_{dt}", intrinsic_group(
+            ht, dt, a_in, b_in, tile=(256, 128)), [], lambda seed=0: {},
+            lambda whole=whole: whole, [1536, 2560])
     data = {}
-    apps = [app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_8]
+    apps = [app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_un,
+            app_hr, app_wv, app_unt, app_hrt]
     for app in apps:
         data[id(app)] = app.make_inputs(0)
         app.bind(data[id(app)])            # onto the card
-    plans = plan_groups(apps)
+    plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_c, app_c64,
+                         app_8, app_unt, app_hrt] + list(apps_in.values()))
     sources = {p.symbol: p for p in plans}
     say(f"{len(plans)} group plans, {len(sources)} kernel sources")
 
@@ -624,6 +779,48 @@ def main():
     phase("div8")
     res_8 = run_app(app_8, {}, "1536x2560 f32 tile reading (x / 8, y / 8)",
                     0.0, rtol=1e-6)
+
+    phase("whole_array_apps")
+    run_whole(app_un, data[id(app_un)], "unsharp 1536x2560x3 f32, default "
+              "schedule")
+    run_whole(app_hr, data[id(app_hr)], "harris 1536x2560x3 f32 in, "
+              "1530x2554 out, default schedule (compute_with pair)")
+    run_whole(app_wv, data[id(app_wv)], "wavelet 1536x2560 f32, default "
+              "schedule")
+
+    # exact: the kernel does the plain version's f32 operations in its
+    # order (-fmad=false, IEEE division; unsharp's taps are expf of
+    # constants on both sides), as the chip runs measured
+    phase("unsharp_tiled")
+    res_unt = run_app(app_unt, data[id(app_unt)], "unsharp 1536x2560x3 f32, "
+                      "tile 256x128, gray and blur_y at the tiles", 0.0)
+
+    phase("harris_tiled")
+    res_hrt = run_app(app_hrt, data[id(app_hrt)], "harris 1536x2560x3 f32 "
+                      "in, tile 256x128, gray, Ix and Iy at the tiles", 0.0)
+
+    phase("intrinsics")
+    res_in = {dt: run_app(app, {}, f"integer intrinsics, {dt} lanes, "
+                          "1536x2560, tile 256x128 (golden: the untiled "
+                          "pipeline, whole-array)", 0)
+              for dt, app in apps_in.items()}
+    a64, b64, f64 = (np.random.default_rng(s).integers(
+        0, 2 ** 64 - 1, (2560, 1536), endpoint=True, dtype=np.uint64)
+        for s in (1, 2, 3))
+    a64[0, :5] = [0, 1, 2 ** 63 - 1, 2 ** 63, 2 ** 64 - 1]
+    b64[::7] = 0
+    b64[1::11] = 1
+    f64 = (f64 >> np.uint64(11)).astype(np.float64) * 4.0 - 2.0 ** 64
+    f64[0, :5] = [np.nan, np.inf, -np.inf, 2.0 ** 63, 2.0 ** 64]
+    pipe_64, golden_64 = u64_pipeline(ht, *(torch.from_numpy(v).cuda()
+                                            for v in (a64, b64, f64)))
+    got_64 = pipe_64.realize([1536, 2560, 15]).to_numpy()
+    bad_64 = [c for c, (g, w) in enumerate(zip(got_64, golden_64(
+        a64, b64, f64))) if not np.array_equal(g, w)]
+    say(f"u64 pipeline 1536x2560x15 on the card against numpy: planes that "
+        f"differ {bad_64} (none allowed)")
+    if bad_64:
+        raise SystemExit(f"u64: planes {bad_64} disagree with numpy")
 
     phase("iir_blur")
     app_i = iir_blur.build(1536, 2560, 0.1)
@@ -794,6 +991,21 @@ def main():
            res_c64, plain_on=some)
     k1_row("P4 8-fold repeat as K1's d = 8 window (1536x2560 f32)",
            "halide_tpu/eval_jnp.py:890", app_8, res_8)
+    k1_row(f"K1 stencil group ({app_unt.name}, tile 256x128)", k1, app_unt,
+           res_unt)
+    k1_row(f"K1 stencil group ({app_hrt.name}, tile 256x128)", k1, app_hrt,
+           res_hrt)
+    for dt, app in apps_in.items():
+        k1_row(f"K1 stencil group (integer intrinsics, {dt} lanes)", k1, app,
+               res_in[dt])
+    # the default schedules (whole-array) beside the reference Halide's GPU
+    # column (BASELINE.md, NVIDIA RTX 2060)
+    for app, ref in ((app_un, "0.4-0.5 ms"), (app_hr, "0.253 ms"),
+                     (app_wv, "none published")):
+        r_ms = event_ms(app.realize, 20, flush)
+        say(f"{app.name} default schedule on {card}: whole realize "
+            f"{r_ms:.4f} ms (host, to completion); the reference Halide's "
+            f"GPU time {ref}")
 
     def scan_times(calls):
         """Summed over the calls: kernel and plain-version ms, bytes, f32
@@ -922,7 +1134,7 @@ def main():
 
     phase("breakdown")
     for app in (app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_8,
-                app_i, app_h):
+                app_i, app_h, app_un, app_hr, app_wv, app_unt, app_hrt):
         breakdown(app)
 
     phase("kernels")

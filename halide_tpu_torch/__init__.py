@@ -9,8 +9,8 @@ neither it nor jax.
 What is ported: the front end, `Pipeline.realize`, whole-array evaluation
 (eval_torch), the stencil-group kernel (ops/group_kernel), and update
 definitions (updates) with the scan kernel (ops/scan_kernel) and the
-row-histogram kernel (ops/rowhist_kernel). Realize runs on the card unless
-the caller passes device="cpu".
+row-histogram kernel (ops/rowhist_kernel), and the print/error hooks.
+Realize runs on the card unless the caller passes device="cpu".
 """
 import sys as _sys
 
@@ -35,6 +35,7 @@ from .iroperator import __all__ as _irop_all                        # noqa: E402
 from .boundary import (repeat_edge, constant_exterior, repeat_image,  # noqa: E402
                        mirror_image, mirror_interior)
 from . import boundary as BoundaryConditions                        # noqa: E402
+from .hooks import set_custom_print, set_error_handler              # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -50,4 +51,5 @@ __all__ = [
     "get_target_from_environment",
     "repeat_edge", "constant_exterior", "repeat_image", "mirror_image",
     "mirror_interior", "BoundaryConditions",
+    "set_custom_print", "set_error_handler",
 ] + list(_irop_all)

@@ -19,7 +19,8 @@ import torch
 APPS: Dict[str, Callable] = {}
 
 _APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
-                "local_laplacian", "stencil_chain", "camera_pipe"]
+                "local_laplacian", "stencil_chain", "camera_pipe", "unsharp",
+                "harris", "wavelet"]
 
 
 def register(name: str):
@@ -39,6 +40,28 @@ def get(name: str):
     if name not in APPS:
         load_all()
     return APPS[name]
+
+
+# The producers that a tiled schedule of an app computes at its output's
+# tiles (`tile_producers`): the JAX apps take no tile, so the schedule is put
+# on from outside, the same code for both packages' pipelines.
+TILED_PRODUCERS = {"unsharp": ("gray", "blur_y"),
+                   "harris": ("gray", "Ix", "Iy")}
+
+
+def tile_producers(m, pipeline, tile, producers) -> None:
+    """Tile `pipeline`'s output over its first two dims (x, y) by `tile`
+    and compute the Funcs named in `producers` at its x tiles, in place of
+    their own compute level. `m` is the package the pipeline was built with:
+    this one, or the JAX package in the tests, whose Funcs and `gather_graph`
+    take the same calls. Call it before the pipeline's first realize."""
+    out = pipeline.outputs[0]
+    funcs = {f.name: f for f in m.pipeline.gather_graph([out]).funcs}
+    x, y = out.args()[:2]
+    xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+    out.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+    for name in producers:
+        funcs[name].compute_at(out, xo)
 
 
 def inputs_from_numpy(app: "App", data: dict, device) -> dict:

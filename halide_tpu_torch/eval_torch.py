@@ -18,12 +18,17 @@ realized tensor; within an evaluation context, axes are addressed by `rpos`
 
 Types: values are tensors in the compute dtype of their Type
 (htypes.compute_dtype): u16 is computed in int32 and u32 in int64, masked back
-into range after every op that can leave it. Integer `/` and `%` are floor
-division and floor modulo with x/0 == x%0 == 0 (the reference's semantics);
-float `%` is a - b*floor(a/b).
+into range after every op that can leave it; u64 is held in int64 as the same
+bits, and compare, min, max, division, right shift and conversion to and from
+float read them as unsigned. Integer `/` and `%` are floor division and floor
+modulo with x/0 == x%0 == 0 (the reference's semantics); float `%` is
+a - b*floor(a/b).
 
-Not ported yet: inline reductions (slice 2) and the random/print/require
-intrinsics (slice 3); they raise NotImplementedError.
+`print`, `print_when` and `require` read their values back to the host (a
+wait for the card, in the pipelines that use them only) and go through the
+port's `hooks`; `random` draws JAX's threefry2x32 bits, computed in torch.
+
+Not ported yet: inline reductions (slice 2); they raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from . import expr as E
 from .expr import CompileError, Expr
-from .htypes import Int, Type, compute_dtype
+from .htypes import Int, Type, compute_dtype, torch_dtype
 
 # ---------------------------------------------------------------------------
 # symbolic index forms
@@ -205,21 +210,88 @@ def to_compute(v: torch.Tensor, t: Type) -> torch.Tensor:
     return v.to(compute_dtype(t))
 
 
+# ---------------------------------------------------------------------------
+# u64 held in int64: the operations that read the bits as unsigned
+# ---------------------------------------------------------------------------
+
+_SIGN64 = -(1 << 63)
+
+
+def _is_u64(t: Type) -> bool:
+    return t.is_uint() and t.bits == 64
+
+
+def _uflip(v: torch.Tensor) -> torch.Tensor:
+    """u64 order as int64 order: the sign bit flipped."""
+    return v ^ _SIGN64
+
+
+def _lshr64(a: torch.Tensor, s) -> torch.Tensor:
+    """Logical right shift of int64 `a` by `s` in [0, 63] (an int, or a
+    tensor: its mask is made on the card, not copied from the host)."""
+    if isinstance(s, int):
+        return (a >> s) & ((1 << (64 - s)) - 1) if s else a
+    high = torch.bitwise_left_shift(torch.full_like(a, -1), 63 - s) << 1
+    return (a >> s) & ~high
+
+
+def _udivmod64(a: torch.Tensor, b: torch.Tensor):
+    """Unsigned quotient and remainder of u64 values held in int64, b != 0:
+    (a >>> 1) // b, doubled, is at most one short of the quotient (a
+    divisor of 2^63 or more gives 0 or 1)."""
+    big = b < 0
+    bs = torch.where(big, torch.ones_like(b), b)
+    q = torch.div(_lshr64(a, 1), bs, rounding_mode="floor") << 1
+    q = q + (_uflip(a - q * bs) >= _uflip(bs)).to(torch.int64)
+    q = torch.where(big, (_uflip(a) >= _uflip(b)).to(torch.int64), q)
+    return q, a - q * b
+
+
+def _u64_to_float(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """u64 (int64-held) -> float, rounded once: a value of 2^63 or more is
+    halved with its low bit kept as a sticky bit, converted and doubled."""
+    half = _lshr64(v, 1) | (v & 1)
+    return torch.where(v < 0, half.to(dtype) * 2, v.to(dtype))
+
+
+def _float_to_u64(v: torch.Tensor) -> torch.Tensor:
+    """float -> u64 as XLA converts it: truncated toward zero, NaN and
+    values below 0 giving 0, values of 2^64 or more giving 2^64 - 1."""
+    v = torch.where(torch.isnan(v) | (v < 0), torch.zeros_like(v), v)
+    big = v >= 2.0 ** 63
+    # below 2^63 in f32 and f64 alike (2^64 and up is replaced below)
+    r = torch.where(big, v - 2.0 ** 63, v).clamp(
+        max=2.0 ** 63 - 2.0 ** 40).to(torch.int64)
+    r = torch.where(big, r ^ _SIGN64, r)
+    return torch.where(v >= 2.0 ** 64, torch.full_like(r, -1), r)
+
+
 def cast_value(v: torch.Tensor, src: Type, dst: Type) -> torch.Tensor:
     """Halide cast semantics on compute-dtype tensors: integer narrowing
-    wraps, float -> int truncates toward zero, anything -> bool is != 0."""
+    wraps, float -> int truncates toward zero, anything -> bool is != 0.
+    u64 converts to and from float as XLA does (`_float_to_u64`)."""
     if dst.is_bool():
         return v != 0
     if v.dtype == torch.bool:
         v = v.to(torch.int32)
     if dst.is_float():
+        if _is_u64(src):
+            return _u64_to_float(v, compute_dtype(dst))
         return v.to(compute_dtype(dst))
     if src.is_float():
+        if _is_u64(dst):
+            return _float_to_u64(v)
         v = v.to(torch.int64)        # truncate toward zero, then wrap
-    if dst.is_uint():
+    if dst.is_uint() and dst.bits < 64:
         return (v.to(torch.int64) & ((1 << dst.bits) - 1)) \
-            .to(compute_dtype(dst)) if dst.bits < 64 else v.to(torch.uint64)
+            .to(compute_dtype(dst))
     return v.to(compute_dtype(dst))
+
+
+def reinterpret(v: torch.Tensor, src: Type, dst: Type) -> torch.Tensor:
+    """The bits of a compute-dtype value of Type src read as Type dst (the
+    same width): through the storage dtypes, never a wider compute dtype."""
+    return to_compute(v.to(torch_dtype(src)).view(torch_dtype(dst)), dst)
 
 
 def kastype(v: torch.Tensor, t: Type) -> torch.Tensor:
@@ -265,6 +337,8 @@ def eval_array(e: Expr, ctx: Ctx) -> torch.Tensor:
 def _const(value, t: Type, ctx: Ctx) -> torch.Tensor:
     # torch.full, not torch.tensor: on the card, torch.tensor copies from
     # the host and waits for every kernel queued before it
+    if _is_u64(t) and value >= 1 << 63:
+        value -= 1 << 64                 # the same bits in int64
     return torch.full((), value, dtype=compute_dtype(t), device=ctx.device)
 
 
@@ -293,7 +367,7 @@ def _eval(e: Expr, ctx: Ctx):
             v = materialize(v, ctx)
         return cast_value(v, e.value.dtype, e.dtype)
     if isinstance(e, E.Reinterpret):
-        raise NotImplementedError("reinterpret comes in slice 3 of the port")
+        return reinterpret(eval_array(e.value, ctx), e.value.dtype, e.dtype)
     if isinstance(e, E.Binary):
         return _eval_binary(e, ctx)
     if isinstance(e, E.Not):
@@ -388,8 +462,27 @@ def _eval_binary(e: E.Binary, ctx: Ctx):
         r = _aval_binary(e.op, a, b)
         if r is not None:
             return r
-    return _apply_binop(e.op, e.dtype, materialize(a, ctx),
-                       materialize(b, ctx))
+    return _apply_binop(e.op, e.a.dtype, materialize(a, ctx),
+                        materialize(b, ctx))
+
+
+def _int_divmod(am, bm, t: Type, mode: str):
+    """Integer quotient and remainder, rounded `mode` ("floor" or "trunc"),
+    with x/0 == x%0 == 0 and the signed minimum over -1 wrapping to itself
+    (remainder 0), as XLA gives: the CPU's division traps there."""
+    bz = bm == 0
+    if _is_u64(t):
+        q, r = _udivmod64(am, torch.where(bz, torch.ones_like(bm), bm))
+    else:
+        neg1 = (bm == -1) if t.is_int() else torch.zeros_like(bz)
+        safe = torch.where(bz | neg1, torch.ones_like(bm), bm)
+        q = torch.div(am, safe, rounding_mode=mode)
+        r = torch.remainder(am, safe) if mode == "floor" else \
+            torch.fmod(am, safe)
+        q = torch.where(neg1, _wrap(-am, t), q)
+        r = torch.where(neg1, torch.zeros_like(r), r)
+    return (torch.where(bz, torch.zeros_like(q), q),
+            torch.where(bz, torch.zeros_like(r), r))
 
 
 def _apply_binop(op: str, t: Type, am, bm):
@@ -401,32 +494,35 @@ def _apply_binop(op: str, t: Type, am, bm):
         return _wrap(am - bm, t)
     if op == "mul":
         return _wrap(am * bm, t)
-    if op == "div":
+    if op in ("div", "mod"):
         if t.is_float():
-            return am / bm
-        bz = bm == 0
-        safe = torch.where(bz, torch.ones_like(bm), bm)
-        return torch.where(bz, torch.zeros_like(am),
-                           torch.div(am, safe, rounding_mode="floor"))
-    if op == "mod":
-        if t.is_float():
-            return am - bm * torch.floor(am / bm)
-        bz = bm == 0
-        safe = torch.where(bz, torch.ones_like(bm), bm)
-        return torch.where(bz, torch.zeros_like(am),
-                           torch.remainder(am, safe))
+            return am / bm if op == "div" else am - bm * torch.floor(am / bm)
+        q, r = _int_divmod(am, bm, t, "floor")
+        return q if op == "div" else r
+    cmp = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+           "gt": torch.gt, "ge": torch.ge}
+    if _is_u64(t) and op in ("min", "max", "lt", "le", "gt", "ge"):
+        lt = _uflip(am) < _uflip(bm)
+        if op in ("min", "max"):
+            return torch.where(lt == (op == "min"), am, bm)
+        return cmp[op](_uflip(am), _uflip(bm))
     if op == "min":
         return torch.minimum(am, bm)
     if op == "max":
         return torch.maximum(am, bm)
-    cmp = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
-           "gt": torch.gt, "ge": torch.ge}
     if op in cmp:
         return cmp[op](am, bm)
     if op == "and":
         return torch.logical_and(am, bm)
     if op == "or":
         return torch.logical_or(am, bm)
+    if _is_u64(t) and op in ("shl", "shr"):
+        # a count of 64 or more (or 2^63 and up, negative in int64) gives 0
+        bm = bm.to(am.dtype)
+        out = (bm < 0) | (bm >= 64)
+        s = torch.where(out, torch.zeros_like(bm), bm)
+        r = am << s if op == "shl" else _lshr64(am, s)
+        return torch.where(out, torch.zeros_like(r), r)
     if op == "shl":
         return _wrap(torch.bitwise_left_shift(am, bm.to(am.dtype)), t)
     if op == "shr":
@@ -481,11 +577,13 @@ def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
     hi) for the raw affine positions u(x), then edge-replicated into the
     realization (a clamp whose bounds exceed the realized region reads the
     edge, as the reference's edge-pad does). A unit-stride span inside both
-    stays a view; any other affine dim is one index_select over the
-    converted window. A div-indexed dim, (x + c) // d, is the span of
-    positions it reads, each repeated d times, from the phase of x's first
-    value on; one that leaves the realization is gathered (clipped into
-    it), as before."""
+    stays a view, and so does a stride c > 1 whose reads all lie inside
+    them (a strided slice, as the reference's strided lax.slice); any other
+    affine dim (a negative coefficient, a clamp or edge that bites) is one
+    index_select over the converted window. A div-indexed dim, (x + c) //
+    d, is the span of positions it reads, each repeated d times, from the
+    phase of x's first value on; one that leaves the realization is
+    gathered (clipped into it), as before."""
     nd = P.ndim
     out_axes: List[Optional[Axis]] = []
     spans, picks = [], []
@@ -534,6 +632,8 @@ def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
         spans.append((npax, a, b - a + 1))
         if c in (0, 1) and b - a + 1 == ext:
             picks.append(None)                       # a plain view
+        elif c > 1 and b - a == c * (ext - 1):
+            picks.append(slice(None, None, c))       # a strided view
         else:
             u = torch.arange(ext, device=P.device) * c + u0
             if clamped:
@@ -542,8 +642,10 @@ def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
             picks.append((u - rmin).clamp(0, size - 1) - a)
         out_axes.append(ax_out)
     Q = P
-    for npax, lo, n in spans:
+    for (npax, lo, n), pick in zip(spans, picks):
         Q = Q.narrow(npax, lo, n)
+        if isinstance(pick, slice):
+            Q = Q[(slice(None),) * npax + (pick,)]
     Q = to_compute(Q, t)
     for (npax, _lo, n), pick in zip(spans, picks):
         if isinstance(pick, tuple):
@@ -553,7 +655,7 @@ def _slice_read(P, real: Realized, t: Type, args, ctx: Ctx):
                 shp[:npax + 1] + [d] + shp[npax + 1:]).reshape(
                 shp[:npax] + [n * d] + shp[npax + 1:]).narrow(npax, phase,
                                                               ext)
-        elif pick is not None:
+        elif isinstance(pick, torch.Tensor):
             Q = Q.index_select(npax, pick)
     # place the kept axes at their context positions
     kept = sorted((ctx.ndim - 1 - ax.rpos, nd - 1 - j)
@@ -615,13 +717,15 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
         return torch.atan2(eval_array(e.args[0], ctx),
                            eval_array(e.args[1], ctx))
     if n == "abs":
-        r = torch.abs(eval_array(e.args[0], ctx))
+        r = eval_array(e.args[0], ctx)
+        r = r if e.args[0].dtype.is_uint() else torch.abs(r)
         return cast_value(r, e.args[0].dtype, e.dtype) \
             if e.dtype != e.args[0].dtype else r
     if n == "absd":
         a = eval_array(e.args[0], ctx)
         b = eval_array(e.args[1], ctx)
-        r = torch.where(a > b, a - b, b - a)
+        r = torch.where(_apply_binop("gt", e.args[0].dtype, a, b), a - b,
+                        b - a)
         return cast_value(r, e.args[0].dtype, e.dtype) \
             if e.dtype != e.args[0].dtype else r
     if n in ("likely", "strict_float"):
@@ -653,10 +757,169 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
     if n == "saturating_cast":
         return saturating_cast(eval_array(e.args[0], ctx), e.args[0].dtype,
                                e.dtype)
+    if n == "recip":
+        return 1.0 / eval_array(e.args[0], ctx)
+    if n in ("popcount", "clz", "ctz"):
+        t = e.args[0].dtype
+        u = _unsigned_bits(eval_array(e.args[0], ctx), t)
+        if n == "popcount":
+            r = _popcount(u)
+        elif n == "clz":
+            r = t.bits - _bit_length(u, t.bits)
+        else:
+            r = torch.where(u == 0, t.bits,
+                            _bit_length(u & -u, t.bits) - 1)
+        return r.to(compute_dtype(e.dtype))
+    if n in ("div_rtz", "mod_rtz"):
+        a = eval_array(e.args[0], ctx)
+        b = eval_array(e.args[1], ctx)
+        t = e.args[0].dtype
+        if t.is_float():
+            bz = b == 0
+            safe = torch.where(bz, torch.ones_like(b), b)
+            r = a / safe if n == "div_rtz" else torch.fmod(a, safe)
+            return torch.where(bz, torch.zeros_like(r), r)
+        q, r = _int_divmod(a, b, t, "trunc")
+        return q if n == "div_rtz" else r
+    if n == "random":
+        return _random(e, ctx)
+    if n == "require":
+        return _require(e, ctx)
+    if n in ("print", "print_when"):
+        return _print(e, ctx)
     if n == "undef":
         raise CompileError("undef() may only appear as a whole update value")
-    raise NotImplementedError(
-        f"intrinsic {n!r} is not ported yet (later slice of the port)")
+    raise CompileError(f"unimplemented intrinsic {n!r}")
+
+
+# ---------------------------------------------------------------------------
+# bit counts, integer operations only (torch has no clz or popcount)
+# ---------------------------------------------------------------------------
+
+def _unsigned_bits(v: torch.Tensor, t: Type) -> torch.Tensor:
+    """The bits of an integer value of Type t in int64: t's bits, zero-
+    extended (a 64-bit Type's are the int64 itself)."""
+    v = v.to(torch.int64)
+    return v & ((1 << t.bits) - 1) if t.bits < 64 else v
+
+
+def _popcount(u: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64, by SWAR: pairs, nibbles, bytes, then the
+    bytes summed into the top one by a multiply."""
+    u = u - ((u >> 1) & 0x5555555555555555)
+    u = (u & 0x3333333333333333) + ((u >> 2) & 0x3333333333333333)
+    u = (u + (u >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (u * 0x0101010101010101) >> 56
+
+
+def _bit_length(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """Bits each value of a `bits`-bit unsigned Type (`_unsigned_bits`)
+    needs: a binary search over halves, 0 for 0."""
+    n = torch.zeros_like(u)
+    s = bits // 2
+    while s:
+        hi = _lshr64(u, s) if bits == 64 else u >> s
+        m = hi != 0
+        n = n + m.to(torch.int64) * s
+        u = torch.where(m, hi, u)
+        s //= 2
+    return n + (u != 0).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# random: the JAX package's draw (jax.random with threefry2x32 keys and
+# jax_threefry_partitionable), in uint32 arithmetic held in int64
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 hash of JAX (`jax._src.prng`): 20 rounds, the key
+    injected after every 4. uint32 values held in int64 tensors (or ints);
+    -> the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1, x2 = (x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = x1 ^ (((x2 << r) | (x2 >> (32 - r))) & _M32)
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def _random(e: E.Intrin, ctx: Ctx) -> torch.Tensor:
+    """random_float / random_uint / random_int over the evaluated shape:
+    the key is jax.random.key(tag * 2654435761 % 2^31), i.e. (0, that),
+    folded (`fold_in`: the hash of the key at the counter (0, data)) with
+    the first element of the seed argument where there is one; then
+    jax.random.bits (the hash at the 64-bit row-major index of each
+    element, its two words xor'ed) or jax.random.uniform (the top 23 bits
+    as the mantissa of a float in [1, 2), minus 1)."""
+    dev = ctx.device
+    tag = int(e.args[-1])
+    k1 = torch.zeros((), dtype=torch.int64, device=dev)
+    k2 = torch.full((), tag * 2654435761 % (1 << 31), dtype=torch.int64,
+                    device=dev)
+    if len(e.args) > 1:
+        sd = eval_array(e.args[0], ctx).reshape(-1)[0]
+        data = sd.to(torch.int64) & _M32
+        k1, k2 = threefry2x32(k1, k2, torch.zeros_like(data), data)
+    shape = full_shape(ctx, list(ctx.axes.values()))
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=dev).reshape(shape)
+    b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
+    bits = b1 ^ b2
+    if e.dtype.is_float():
+        one = (bits >> 9) | 0x3F800000
+        return one.to(torch.int32).view(torch.float32) - 1.0
+    return cast_value(bits, Int(64), e.dtype)
+
+
+# ---------------------------------------------------------------------------
+# print, print_when and require: through the port's hooks, once per
+# realization; the values are read back to the host
+# ---------------------------------------------------------------------------
+
+def _host(v: torch.Tensor, t: Type):
+    """A compute-dtype value of Type t, in t's storage dtype on the host."""
+    from .hooks import to_numpy
+    return to_numpy(v.to(torch_dtype(t)))
+
+
+def _print(e: E.Intrin, ctx: Ctx):
+    """print: the value passes through, and its summary with the string
+    arguments goes through hooks.halide_print; print_when prints the
+    values where the condition holds, where it holds anywhere."""
+    from . import hooks
+    idx = 0 if e.name == "print" else 1
+    val = evaluate(e.args[idx], ctx)
+    vn = _host(materialize(val, ctx), e.args[idx].dtype)
+    if e.name == "print":
+        strs = [a.value if isinstance(a, E.StringImm) else a
+                for a in e.args[1:] if isinstance(a, (E.StringImm, str))]
+        hooks.halide_print(" ".join([hooks.format_value(vn)] + strs) + "\n")
+        return val
+    cn = _host(eval_array(e.args[0], ctx), e.args[0].dtype).astype(bool)
+    if cn.any():
+        sel = vn[cn] if vn.shape == cn.shape else vn.reshape(-1)
+        hooks.halide_print(hooks.format_value(sel) + "\n")
+    return val
+
+
+def _require(e: E.Intrin, ctx: Ctx):
+    """require(cond, value, ...): the value passes through; a condition
+    that fails anywhere goes through hooks.halide_error."""
+    from . import hooks
+    cn = _host(eval_array(e.args[0], ctx), e.args[0].dtype).astype(bool)
+    val = evaluate(e.args[1], ctx)
+    if not cn.all():
+        bad = int((~cn).sum()) if cn.size > 1 else 1
+        hooks.halide_error(f"Requirement Failed: ({bad} of "
+                           f"{max(cn.size, 1)} lanes violate the condition)")
+    return val
 
 
 def saturating_cast(v: torch.Tensor, src: Type, t: Type) -> torch.Tensor:
@@ -664,10 +927,22 @@ def saturating_cast(v: torch.Tensor, src: Type, t: Type) -> torch.Tensor:
     float -> float is a plain cast; float -> integer clips to the target's
     range in the float type and truncates, NaN giving 0 (XLA's conversion),
     a bound that the float type rounds up (2^31 for i32 in f32) giving the
-    target's maximum; integer -> integer clamps in int64."""
+    target's maximum; integer -> integer clamps in int64, a u64 source
+    (held in int64) read as unsigned. To or from 64 bits this is not the
+    reference's: it clips 64-bit sources through int32 (ROADMAP, queue 3)."""
     if t.is_float():
-        return v.to(compute_dtype(t))
+        return cast_value(v, src, t)
     lo, hi = int(t.min_value()), int(t.max_value())
+    if src.is_float() and _is_u64(t):
+        return _float_to_u64(v)        # clips to [0, 2^64 - 1], NaN -> 0
+    if _is_u64(src) or _is_u64(t):
+        v = v.to(torch.int64)
+        if _is_u64(src) and _is_u64(t):
+            return v
+        if _is_u64(t):
+            return v.clamp(min=0)
+        # 2^63 and up (negative in int64) lie above any other maximum
+        return torch.where(v < 0, hi, v.clamp(max=hi)).to(compute_dtype(t))
     if src.is_float():
         v = torch.where(torch.isnan(v), torch.zeros_like(v), v)
         v = v.clamp(float(lo), float(hi))

@@ -9,8 +9,9 @@ Each Type maps to a torch dtype twice over: its storage dtype (what a Buffer
 holds) and its compute dtype (what evaluation uses). They differ for the
 unsigned types torch cannot compute with on the CPU (add, compare, shift,
 floor-div and min raise for uint16/uint32/uint64): u16 is evaluated in int32
-and u32 in int64, re-wrapped with a mask after every op that can overflow, and
-cast to the storage dtype only at buffers.
+and u32 in int64, re-wrapped with a mask after every op that can overflow, u64
+in int64 as the same bits, and each is cast to the storage dtype only at
+buffers.
 """
 from __future__ import annotations
 
@@ -157,17 +158,17 @@ def torch_dtype(t: Type) -> torch.dtype:
     raise ValueError(f"no torch dtype for {t}")
 
 
-_COMPUTE_WIDER = {16: torch.int32, 32: torch.int64}
+_COMPUTE_WIDER = {16: torch.int32, 32: torch.int64, 64: torch.int64}
 
 
 def compute_dtype(t: Type) -> torch.dtype:
     """Dtype evaluation computes a Type in: the storage dtype, except u16
-    (int32) and u32 (int64), whose torch arithmetic is missing on the CPU."""
+    (int32), u32 and u64 (int64), whose torch arithmetic is missing on the
+    CPU. u64 is held as two's-complement int64: the same bits, with the
+    operations that read them as unsigned (compare, min, max, division,
+    right shift, conversion to and from float) written out in eval_torch."""
     if t.is_uint() and t.bits in _COMPUTE_WIDER:
         return _COMPUTE_WIDER[t.bits]
-    if t.is_uint() and t.bits == 64:
-        raise NotImplementedError("u64 arithmetic has no torch dtype to "
-                                  "compute in")
     return torch_dtype(t)
 
 

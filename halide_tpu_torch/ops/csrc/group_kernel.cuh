@@ -7,7 +7,8 @@
 //     with x/0 == x%0 == 0, and wrapping arithmetic at every width
 //     (u16/u32 included), computed through a wider unsigned type so that
 //     no signed overflow (undefined in C++) can occur;
-//   - Halide casts (float -> int truncates toward zero, then wraps);
+//   - Halide casts (float -> int truncates toward zero, then wraps), bit
+//     counts, division rounded toward zero and bit casts;
 //   - the shift-inwards origin of the last sub-tile (Schedule.h
 //     ShiftInwards);
 //   - staging of a halo'd window of an input into shared memory: where the
@@ -219,6 +220,98 @@ HL_FN To hl_saturating_cast(From v) {
     }
     return (To)w;
   }
+}
+
+// --- bit counts, division rounded toward zero, bit casts ----------------------
+
+// The bits of an integer type, as the unsigned type of its width.
+template <typename T>
+using hl_bits_t = typename std::make_unsigned<T>::type;
+
+template <typename T>
+HL_FN int hl_popcount(T v) {
+  const hl_bits_t<T> u = (hl_bits_t<T>)v;
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) > 4) return __popcll((unsigned long long)u);
+  else return __popc((unsigned)u);
+#else
+  if constexpr (sizeof(T) > 4) return __builtin_popcountll(u);
+  else return __builtin_popcount((unsigned)u);
+#endif
+}
+
+// Leading zeros among T's bits, T's bits for 0: the count over 32 bits
+// (or 64) less the bits above T's width.
+template <typename T>
+HL_FN int hl_clz(T v) {
+  constexpr int bits = 8 * (int)sizeof(T);
+  const hl_bits_t<T> u = (hl_bits_t<T>)v;
+#ifdef __CUDA_ARCH__
+  if constexpr (bits > 32) return __clzll((long long)u);
+  else return __clz((int)(unsigned)u) - (32 - bits);
+#else
+  if (u == 0) return bits;
+  if constexpr (bits > 32) return __builtin_clzll(u);
+  else return __builtin_clz((unsigned)u) - (32 - bits);
+#endif
+}
+
+// Trailing zeros, T's bits for 0: __ffs numbers the lowest set bit from 1
+// and gives 0 for 0.
+template <typename T>
+HL_FN int hl_ctz(T v) {
+  constexpr int bits = 8 * (int)sizeof(T);
+  const hl_bits_t<T> u = (hl_bits_t<T>)v;
+#ifdef __CUDA_ARCH__
+  int f;
+  if constexpr (bits > 32) f = __ffsll((long long)u);
+  else f = __ffs((int)(unsigned)u);
+#else
+  int f;
+  if constexpr (bits > 32) f = __builtin_ffsll((long long)u);
+  else f = __builtin_ffs((int)(unsigned)u);
+#endif
+  return f == 0 ? bits : f - 1;
+}
+
+// Division rounded toward zero (C's / and %) with x/0 == x%0 == 0, and the
+// signed minimum over -1 giving itself (remainder 0), as XLA gives; for
+// floats a / b and fmod, 0 where b == 0.
+template <typename T>
+HL_FN T hl_div_rtz(T a, T b) {
+  if (b == (T)0) return (T)0;
+  if constexpr (std::is_floating_point<T>::value) {
+    return a / b;
+  } else {
+    if constexpr (std::is_signed<T>::value) {
+      if (b == (T)-1) return (T)((hl_wide_u<T>)0 - (hl_wide_u<T>)a);
+    }
+    return (T)(a / b);
+  }
+}
+
+template <typename T>
+HL_FN T hl_mod_rtz(T a, T b) {
+  if (b == (T)0) return (T)0;
+  if constexpr (std::is_same<T, float>::value) {
+    return fmodf(a, b);
+  } else if constexpr (std::is_floating_point<T>::value) {
+    return fmod(a, b);
+  } else {
+    if constexpr (std::is_signed<T>::value) {
+      if (b == (T)-1) return (T)0;
+    }
+    return (T)(a % b);
+  }
+}
+
+// The bits of a From read as a To of the same width.
+template <typename To, typename From>
+HL_FN To hl_reinterpret(From v) {
+  static_assert(sizeof(To) == sizeof(From), "reinterpret: widths differ");
+  To r;
+  memcpy(&r, &v, sizeof(To));
+  return r;
 }
 
 // --- tiling -------------------------------------------------------------------

@@ -86,6 +86,13 @@ as the JAX planner derives div symbols for inputs only. The last column
 and row of sub-tiles may sit at any origin phase modulo d, and the plan
 checks that the staged window holds the footprint at every phase.
 
+Point functions take the arithmetic, casts, selects, the libm functions,
+lerp, saturating_cast, absd, the bit counts (popcount, clz, ctz), division
+rounded toward zero, recip and reinterpret (`csrc/group_kernel.cuh`).
+print, print_when, require and random make the plan reject the group, which
+then runs whole-array: the first three read their values back to the host,
+and random draws over the whole evaluated shape, which a sub-tile is not.
+
 Not ported yet: the sliding-window carry of store_at producers (they are
 recomputed per sub-tile: same values).
 """
@@ -764,13 +771,24 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
 
 _FREE_INTRIN = {"param", "buffer_min", "buffer_extent", "likely",
                 "strict_float"}
+# operations one call of an intrinsic counts where not 1: clz of a width
+# below 32 corrects its 32-bit count, ctz is __ffs and the select of 0,
+# the divisions rounded toward zero guard their divisor (an integer
+# division itself counts as one, though the card has no divide unit)
+_INTRIN_OPS = {"clz": 2, "ctz": 2, "div_rtz": 2, "mod_rtz": 2}
+# intrinsics the kernel does not take: print, print_when and require read
+# their values back to the host, and random draws over the whole evaluated
+# shape (per tile it would give other values); a group that holds one is
+# evaluated whole-array
+_WHOLE_ARRAY_INTRIN = {"print", "print_when", "require", "random"}
 
 
 def point_ops(value) -> Tuple[int, int]:
     """(f32, integer) operations one point of `value` does on its data. The
     coordinate arithmetic of a read's indices is not counted unless the
     index depends on data; an operation is counted by its operands' type (a
-    float comparison is an f32 operation); a shared subexpression once."""
+    float comparison is an f32 operation), an intrinsic as `_INTRIN_OPS`
+    says, a bit cast not at all; a shared subexpression once."""
     def reads_data(e):
         hit = [False]
 
@@ -790,17 +808,19 @@ def point_ops(value) -> Tuple[int, int]:
                 if reads_data(a):
                     visit(a)
             return
-        t = None
+        t, k = None, 1
         if isinstance(e, E.Binary):
             t = e.a.dtype
         elif isinstance(e, E.Select):
             t = e.true_value.dtype
         elif isinstance(e, E.Intrin) and e.name not in _FREE_INTRIN:
-            t = e.args[0].dtype if e.args else e.dtype
+            first = e.args[0] if e.args else None     # random's is a tag
+            t = first.dtype if isinstance(first, E.Expr) else e.dtype
+            k = _INTRIN_OPS.get(e.name, 1)
         elif isinstance(e, E.Not):
             t = e.dtype
         if t is not None:
-            n[0 if t.is_float() else 1] += 1
+            n[0 if t.is_float() else 1] += k
         for c in e.children():
             visit(c)
     visit(value)
@@ -1125,6 +1145,10 @@ class _PointEmitter:
             return self._read(e)
         if isinstance(e, E.Intrin):
             return self._intrin(e)
+        if isinstance(e, E.Reinterpret):
+            return self.let(e.dtype, f"hl_reinterpret<{ctype(e.dtype)}, "
+                                     f"{ctype(e.value.dtype)}>("
+                                     f"{self.val(e.value)})")
         raise GroupUnsupported(f"{type(e).__name__} in a kernel")
 
     def _binary(self, e: E.Binary) -> str:
@@ -1176,6 +1200,25 @@ class _PointEmitter:
                                      f"{self.val(e.args[0])})")
         if n == "lerp":
             return self._lerp(e)
+        if n in ("popcount", "clz", "ctz"):
+            at = e.args[0].dtype
+            if not at.is_integer() or at.is_bool():
+                raise GroupUnsupported(f"{n} of {at}")
+            return self.let(e.dtype, f"hl_cast<{ctype(e.dtype)}>(hl_{n}<"
+                                     f"{ctype(at)}>({self.val(e.args[0])}))")
+        if n in ("div_rtz", "mod_rtz"):
+            a, b = self.val(e.args[0]), self.val(e.args[1])
+            return self.let(e.dtype, f"hl_{n}<{ctype(e.args[0].dtype)}>("
+                                     f"{a}, {b})")
+        if n == "recip":
+            if not e.dtype.is_float() or e.dtype.bits not in (32, 64):
+                raise GroupUnsupported(f"recip of {e.dtype}")
+            ct = ctype(e.dtype)
+            return self.let(e.dtype, f"hl_div<{ct}>(({ct})1, "
+                                     f"{self.val(e.args[0])})")
+        if n in _WHOLE_ARRAY_INTRIN:
+            raise GroupUnsupported(
+                f"intrinsic {n} in a group: it runs whole-array")
         if n == "param":
             v = self.ctx0.params[id(e.args[0])]
             if e.dtype.is_float():

@@ -300,3 +300,89 @@ def test_camera_pipe_roots_name_a_stage():
     from halide_tpu_torch.apps import camera_pipe
     with pytest.raises(CompileError, match="unknown stage 'nope'"):
         camera_pipe.build(out_width=64, out_height=32, roots="g_r,nope")
+
+
+# ---------------------------------------------------------------------------
+# unsharp, harris and wavelet: their default schedules (compute_root only,
+# whole-array), and unsharp's and harris's tiled schedules, put on both
+# packages' pipelines from outside by the same code (tile_producers)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["unsharp", "harris", "wavelet"])
+def test_whole_array_apps(name, seed, monkeypatch):
+    gk.last_plan = None
+    app, data, got, want = _run_both(name, monkeypatch, seed=seed, **SMALL)
+    assert gk.last_plan is None
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def _tiled_both(name, tile, seed=0, **kw):
+    """The app with its output tiled by `tile` and its wide producers at
+    the tiles, in both packages (the JAX side with its group kernel in
+    interpret mode, as the repo's CPU settings run it). -> (app, data,
+    port output, JAX output, the JAX planner's record or None)."""
+    import halide_tpu as hl
+    import halide_tpu_torch as ht
+    from halide_tpu.ops import pallas_group
+    from halide_tpu_torch.apps import TILED_PRODUCERS, tile_producers
+    tapp = torch_get(name)(**kw)
+    tile_producers(ht, tapp.pipeline, tile, TILED_PRODUCERS[name])
+    data = tapp.make_inputs(seed)
+    tapp.bind(data, "cpu")
+    got = tapp.realize("cpu").to_numpy()
+    japp = jax_get(name)(**kw)
+    tile_producers(hl, japp.pipeline, tile, TILED_PRODUCERS[name])
+    japp.bind(japp.make_inputs(seed))
+    pallas_group._last_plan = None
+    want = np.asarray(japp.realize().to_numpy())
+    return tapp, data, got, want, pallas_group._last_plan
+
+
+@pytest.mark.parametrize("tile", [(32, 16), (40, 24)])
+@pytest.mark.parametrize("name", ["unsharp", "harris"])
+def test_tiled_apps_go_through_the_group_plan(name, tile):
+    """The port's plan takes the tiled group (no reject; the output is the
+    group's consumer, the wide producers its members); the JAX planner
+    takes it too at these sizes (recorded: its _last_plan). The values
+    against the JAX package and the golden, under the app's rule."""
+    from halide_tpu_torch.apps import TILED_PRODUCERS
+    rejects = sum(gk.rejects.values())
+    gk.last_plan = None
+    app, data, got, want, jax_plan = _tiled_both(name, tile, **SMALL)
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    assert gk.last_plan["func"] == app.pipeline.outputs[0].name
+    assert gk.last_plan["members"] == list(TILED_PRODUCERS[name])
+    assert gk.last_plan["windows"] == ["input"]
+    assert jax_plan is not None and jax_plan["grid"]
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def test_harris_compute_with_and_bounds_match_jax():
+    """harris's Ix.compute_with(Iy, x) and its output shifted by +3 and
+    realized over [width - 6, height - 6]: the regions bounds inference
+    gives gray, Ix and Iy (each package's _BoundsPass) are the same."""
+    import halide_tpu as hl
+    import halide_tpu_torch as ht
+    from halide_tpu import bounds as hb
+    from halide_tpu import pipeline as hp
+    from halide_tpu_torch import bounds as tb
+    from halide_tpu_torch import pipeline as tp
+    regions = {}
+    for m, pmod, bmod, get in ((hl, hp, hb, jax_get),
+                               (ht, tp, tb, torch_get)):
+        app = get("harris")(**SMALL)
+        out = app.pipeline.outputs[0]
+        g = pmod.gather_graph([out])
+        bp = pmod._BoundsPass(g, bmod.BoundsEngine())
+        w, h = app.output_sizes
+        bp.run([out], {id(out): bmod.Box([bmod.Interval(0, w - 1),
+                                          bmod.Interval(0, h - 1)])})
+        regions[m] = {f.name: [(d.lo, d.hi) for d in bp.boxes[id(f)].dims]
+                      for f in g.funcs if f.name in ("gray", "Ix", "Iy")}
+    assert regions[ht] == regions[hl]
+    assert regions[ht]["gray"] == [(1, 94), (1, 62)]
+    assert regions[ht]["Ix"] == regions[ht]["Iy"] == [(2, 93), (2, 61)]
+

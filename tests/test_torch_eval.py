@@ -89,6 +89,16 @@ def _div_reads(m, a, b, x, y):
             + g[x, y / 8] * 5 - g[(x + 7) / 8, y] + g[(x - 1) / 2, y / 8])
 
 
+def _strided_reads(m, a, b, x, y):
+    """Reads of a root Func at 2x, 3x + 1 (strided views: every read
+    inside its realization) and -2x + 5 (a negative coefficient: an
+    index_select); no product, so that f32 compares bit for bit."""
+    g = m.Func("g")
+    g[x, y] = m.repeat_edge(a)[x, y] + b[m.clamp(x, 0, W - 1), y]
+    g.compute_root()
+    return g[2 * x, y] + g[3 * x + 1, y] - g[-2 * x + 5, y]
+
+
 def _lerp_f32(m, a, b, x, y):
     return m.lerp(a[x, y], b[x, y], a[x, y] * b[x, y])
 
@@ -127,6 +137,8 @@ CASES = {
     "div_index": (_div_index, "int32", -1000, 1000, 0),
     "div_reads": (_div_reads, "int32", -1000, 1000, 0),
     "div_reads_u16": (_div_reads, "uint16", 0, 1 << 14, 0),
+    "strided_reads": (_strided_reads, "int32", -1000, 1000, 0),
+    "strided_reads_f32": (_strided_reads, "float32", -10.0, 10.0, 0),
     "lerp_f32": (_lerp_f32, "float32", 0.0, 1.0, 1e-6),
     "lerp_u8_weight": (_lerp_u8_weight, "float32", 0.0, 1.0, 1e-6),
     "lerp_bool_weight": (_lerp_bool_weight, "int32", -300, 300, 0),
@@ -206,6 +218,35 @@ def test_div_reads_take_the_slice_path(dtype, lo, hi, monkeypatch):
     monkeypatch.setattr(et, "_gather_read", no_gather)
     got = _realize(ht, _div_reads, dtype, a, b)
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("c,k,view", [(2, 0, True), (3, 2, True),
+                                      (-2, 30, False)])
+def test_affine_reads_with_a_coefficient(c, k, view, monkeypatch):
+    """A read at c x + k inside the realization: a strided view of the
+    buffer for c = 2 and 3 (no index_select, the same storage), an
+    index_select for a negative c; the values are the buffer's."""
+    from halide_tpu_torch import eval_torch as et
+    picks = []
+    orig = torch.Tensor.index_select
+
+    def spy(self, *a, **kw):
+        picks.append(a)
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "index_select", spy)
+    P = torch.arange(3 * 40, dtype=torch.float32).reshape(3, 40)
+    inp = ht.ImageParam(ht.Float(32), 2, "p")
+    x, y = ht.Var("x"), ht.Var("y")
+    ctx = et.Ctx(2, {"x": et.Axis("x", 0, 0, 12), "y": et.Axis("y", 1, 0, 3)},
+                 {}, {id(inp): et.Realized((P,), (0, 0), "p")}, {}, "cpu")
+    got = et.eval_array(inp[c * x + k, y], ctx)
+    want = P[:, [c * i + k for i in range(12)]]
+    assert torch.equal(got, want)
+    assert (not picks) == view
+    shares = got.untyped_storage().data_ptr() == \
+        P.untyped_storage().data_ptr()
+    assert shares == view
 
 
 # ---------------------------------------------------------------------------
