@@ -11,9 +11,10 @@ Then it drives the port's main paths through `App.bind` /
 
 - blur (the README quick-start schedule, 2560x1536 u16) and linear_blur
   (1536x2560x3 f32) through the stencil-group kernel K1; linear_blur's
-  full-width row bands make its launch a band walk (planned to walk one
-  sub-tile a block; the same build is also timed walking two sub-tiles a
-  block and with the walk off);
+  full-width row bands make its launch a band walk, which carries its
+  store_root blur_x (the same build is also timed walking two sub-tiles a
+  block with two window buffers, and with the walk off; and beside the
+  same sub-tiles planned with no carry);
 - interpolate (1536x2560x4 f32, 10 levels) and local_laplacian
   (1536x2560x3 u16, 8 pyramid levels, 8 intensity levels) through K1 with
   div-indexed windows (the half-resolution level read at x / 2), tile
@@ -21,6 +22,14 @@ Then it drives the port's main paths through `App.bind` /
 - stencil_chain (1536x2560 u16, 32 stencils, the kernel branch): four K1
   launches, one per group of 8 stencils; the last is a band walk, the
   others are wider than their tile (1632, 1600, 1568 at the tile 1536);
+  and its slide=512 branch on the same input: four K1 launches whose 15
+  members each are carried along x (a block walking the sub-tiles of a
+  row), each also against its walk off and the same sub-tiles planned with
+  no carry, exactly; linear_blur's blur_x is carried down its band walk,
+  checked the same way;
+- a group whose member is a hand-built Let (`let_group`), in float16 and
+  bfloat16 at 1536x2560, tile 256x128: K1's 16-bit floats, exact against
+  its plain version and the untiled pipeline;
 - camera_pipe (2560x1920 u8 out, the kernel branch) at the full-width tile
   2560x128 (a band walk) and at the tile 256x64;
 - a 1536x2560 f32 tile reading a producer at (x / 8, y / 8): K1's d = 8
@@ -65,7 +74,8 @@ version, the whole realize (what a caller waits for) and, where one PyTorch
 call computes the same function, that call; and breaks one realize of each
 app down by device time with the profiler.
 
-Every phase prints one flushed line with its elapsed seconds. A watchdog
+Every phase prints one flushed line with its elapsed seconds, and the
+seconds it took when the next begins. A watchdog
 ends the script with exit code 1 after 600 s, naming the phase it was in.
 It exits 1 without a result where torch sees no CUDA device, and fails
 where the package is not beside it. The last line of its output is
@@ -87,6 +97,7 @@ import torch
 
 T0 = time.time()
 PHASE = ["start"]
+PHASE_T = [T0]
 DEADLINE_S = 600
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # f32 operations outside the tensor cores: the data sheet's 67 TFLOP/s
@@ -110,7 +121,10 @@ def say(msg):
 
 
 def phase(name):
-    PHASE[0] = name
+    now = time.time()
+    if PHASE[0] != "start":
+        say(f"took {now - PHASE_T[0]:.1f} s")
+    PHASE[0], PHASE_T[0] = name, now
     say("begin")
 
 
@@ -335,16 +349,22 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
     if got != list(walks):
         raise SystemExit(f"{app.name}: band walks {got}, expected {walks}")
     for plan, *_rest in calls:
-        grid = plan.record()["grid"]
+        rec = plan.record()
         want = (gk._cdiv(plan.extents[plan.xi], plan.sx),
                 gk._cdiv(plan.extents[plan.yi], plan.sy)
                 if plan.yi is not None else 1)
-        if grid != want:
-            raise SystemExit(f"{app.name}: {plan.f.name}'s grid {grid} is not "
-                             f"the {want} sub-tiles of its extent")
-    grids = [(c[0].f.name, list(c[0].extents), c[0].record()["grid"])
-             for c in calls]
-    say(f"every group's grid is cdiv(extent, sub-tile): {grids}")
+        w = rec["walk"]
+        grid = ((gk._cdiv(want[0], w), want[1]) if rec["axis"] == "x"
+                else (want[0], gk._cdiv(want[1], w)))
+        if rec["sub_tiles"] != want or rec["grid"] != grid:
+            raise SystemExit(f"{app.name}: {plan.f.name}'s sub-tiles "
+                             f"{rec['sub_tiles']} and grid {rec['grid']} are "
+                             f"not the {want} sub-tiles of its extent, "
+                             f"{w} a block along {rec['axis']}")
+    grids = [(c[0].f.name, list(c[0].extents), c[0].record()["sub_tiles"],
+              c[0].record()["grid"]) for c in calls]
+    say("every group's sub-tiles are cdiv(extent, sub-tile), its grid "
+        f"those over its walk: {grids}")
     err = plain_ms = 0.0
     for plan, inputs, rmins, params, _realz in calls:
         kern = gk.launch(plan, inputs, rmins)
@@ -488,6 +508,35 @@ def intrinsic_group(m, dtype, a, b, tile=None):
     return m.Pipeline(out)
 
 
+def let_group(m, dtype, a, tile=None):
+    """c[x, y] = max(p[x, y], p[x + 1, y + 1]) over inp of numpy dtype
+    `dtype` (int32, float32, float16 or bfloat16), where p's value is a
+    hand-built expr.Let: v = e[x - 1, y] + e[x + 1, y + 1] in v * v + v,
+    with e the edge-clamped input. `m` is the package (this port, or the
+    JAX package in the tests); `a` is set on the ImageParam as given (a
+    tensor of `dtype` for the port). With `tile` the output is tiled and p
+    computed at the tiles: the group kernel's path, with a Let and, for the
+    16-bit floats, operations rounded to the type. -> the pipeline."""
+    import importlib
+    E = importlib.import_module(m.__name__ + ".expr")
+    t = {"int32": m.Int(32), "float32": m.Float(32), "float16": m.Float(16),
+         "bfloat16": m.BFloat(16)}[dtype]
+    inp = m.ImageParam(t, 2, "inp")
+    x, y = m.Var("x"), m.Var("y")
+    e = m.repeat_edge(inp)
+    p, c = m.Func("p"), m.Func("c")
+    s = e[x - 1, y] + e[x + 1, y + 1]
+    v = E.Variable("v", s.dtype)
+    p[x, y] = E.Let("v", s, v * v + v)
+    c[x, y] = m.max(p[x, y], p[x + 1, y + 1])
+    if tile is not None:
+        xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+        c.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+        p.compute_at(c, xo)
+    inp.set(a)
+    return m.Pipeline(c)
+
+
 def u64_pipeline(m, a, b, f):
     """out[x, y, c] in u64 of u64 inputs a, b and an f64 input f: plane c
     is one operation that reads u64 as unsigned (or wraps): +, -, *, /, %,
@@ -533,6 +582,19 @@ def u64_pipeline(m, a, b, f):
                 a.astype(np.float32).view(np.uint32).astype(u), fu]
         return np.stack([np.asarray(o, u) for o in out])
     return m.Pipeline(out), golden
+
+
+def no_carry(app, calls=False, same=True):
+    """Every group of `app`'s last realize planned again with no carried
+    member (`group_kernel.group_calls`), at its sub-tile and threads, or
+    with `same` False at the rule's own choice: the plan the schedule
+    would get without its store levels. -> the plans, or with `calls` the
+    group calls."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    out = gk.group_calls(app.pipeline, replan=lambda p: [dict(
+        sub_tile=(p.sx, p.sy), threads=p.threads, carry=False) if same
+        else dict(carry=False)])
+    return out if calls else [c[0] for c in out]
 
 
 def run_whole(app, data, note):
@@ -681,6 +743,7 @@ def main():
     app_p = interpolate.build(1536, 2560)
     app_ll = local_laplacian.build(1536, 2560)
     app_s = stencil_chain.build(1536, 2560, 32, kernel=True)
+    app_sl = stencil_chain.build(1536, 2560, 32, slide=512)
     app_c = camera_pipe.build(2560, 1920, kernel=True, tile=(2560, 128))
     app_c64 = camera_pipe.build(2560, 1920, kernel=True, tile=(256, 64))
     pipe_8, sizes_8, golden_8 = div8_group(1536, 2560)
@@ -702,14 +765,28 @@ def main():
         apps_in[dt] = App(f"intrinsics_{dt}", intrinsic_group(
             ht, dt, a_in, b_in, tile=(256, 128)), [], lambda seed=0: {},
             lambda whole=whole: whole, [1536, 2560])
+    apps_h = {}                   # the Let group's App, per 16-bit float
+    a_h = np.random.default_rng(0).integers(8, 32, (2560, 1536)) / 16
+    for dt in ("float16", "bfloat16"):
+        t_h = torch.from_numpy(a_h).to(getattr(torch, dt)).cuda()
+        whole = let_group(ht, dt, t_h).realize([1536, 2560]).to_numpy()
+        apps_h[dt] = App(f"let_{dt}", let_group(ht, dt, t_h, (256, 128)), [],
+                         lambda seed=0: {}, lambda whole=whole: whole,
+                         [1536, 2560])
     data = {}
-    apps = [app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_un,
-            app_hr, app_wv, app_unt, app_hrt]
+    apps = [app_b, app_l, app_p, app_ll, app_s, app_sl, app_c, app_c64,
+            app_un, app_hr, app_wv, app_unt, app_hrt]
     for app in apps:
         data[id(app)] = app.make_inputs(0)
         app.bind(data[id(app)])            # onto the card
-    plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_c, app_c64,
-                         app_8, app_unt, app_hrt] + list(apps_in.values()))
+    plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
+                         app_c64, app_8, app_unt, app_hrt]
+                        + list(apps_in.values()) + list(apps_h.values()))
+    # the carried groups planned again with no carry, at the same sub-tile
+    # and threads and at the rule's own: built with the rest, timed beside
+    # the carried ones
+    plans += [q for app in (app_l, app_sl) for same in (True, False)
+              for q in no_carry(app, same=same)]
     sources = {p.symbol: p for p in plans}
     say(f"{len(plans)} group plans, {len(sources)} kernel sources")
 
@@ -739,20 +816,33 @@ def main():
     # card took best, tools/k1_walk_sweep.py; two window buffers, the next
     # sub-tile's staged by cp.async) and with its band walk off (one
     # sub-tile a block): the values must not change
+    # the plan carries blur_x (store_root) down the band walk; the same
+    # build walking two sub-tiles a block with two window buffers (the next
+    # sub-tile's staged by cp.async), and with its walk off (one sub-tile
+    # a block: every step a first step, no carry), and the same sub-tile
+    # planned with no carry: the values must not change
     plan_l, in_l, rm_l, _pa, _r = res_l[0][0]
+    rec_l = plan_l.record()
+    say(f"linear_blur: carried {rec_l['sliding']} along {rec_l['axis']}, "
+        f"walk {rec_l['walk']}, {rec_l['n_buf']} window buffers")
+    if rec_l["sliding"] != ["blur_x"] or rec_l["walk"] < 2:
+        raise SystemExit(f"linear_blur: planned no carry ({rec_l})")
     walk_on, walk_off = copy.copy(plan_l), copy.copy(plan_l)
     walk_on.walk, walk_on.n_buf = 2, 2         # f32 windows: cp.async
-    walk_off.band_walk = False
+    walk_off.walk, walk_off.n_buf = 1, 1
+    nc_calls_l = no_carry(app_l, calls=True)
+    nc_l, nc_in, nc_rm = nc_calls_l[0][:3]
     k_pl = gk.launch(plan_l, in_l, rm_l)
-    k_on, k_off = gk.launch(walk_on, in_l, rm_l), gk.launch(walk_off, in_l,
-                                                           rm_l)
+    ks = [gk.launch(q, in_l, rm_l) for q in (walk_on, walk_off)]
+    ks.append(gk.launch(nc_l, nc_in, nc_rm))
     torch.cuda.synchronize()
-    err_on = max((k_on - k_pl).abs().max().item(),
-                 (k_off - k_pl).abs().max().item())
-    say(f"planned {plan_l.record()} vs walking {walk_on.record()} and "
-        f"walk off {walk_off.record()}: max abs err {err_on!r} (exact)")
+    err_on = max((k - k_pl).abs().max().item() for k in ks)
+    say(f"planned {rec_l} vs walking {walk_on.record()}, walk off "
+        f"{walk_off.record()} and no carry {nc_l.record()}: max abs err "
+        f"{err_on!r} (exact)")
     if err_on != 0.0:
-        raise SystemExit("linear_blur: the walk changes the values")
+        raise SystemExit("linear_blur: the walk or the carry changes the "
+                         "values")
 
     phase("interpolate")
     res_p = run_app(app_p, data[id(app_p)], "interpolate 1536x2560x4 f32, "
@@ -764,9 +854,47 @@ def main():
                      frac=0.003, cap=2.0)
 
     phase("stencil_chain")
+    golden_s = app_s.reference(**data[id(app_s)])
     res_s = run_app(app_s, data[id(app_s)], "stencil_chain 1536x2560 u16, "
                     "32 stencils, groups of 8 in 128-row bands", 0,
-                    walks=(False, False, False, True), bands=2)
+                    walks=(False, False, False, True), bands=2,
+                    golden=golden_s)
+
+    # the slide branch (the same input): tiles 512x128, each group's
+    # stages stored at the row loop and carried along x, a block walking
+    # the sub-tiles of a row; each launch also against its walk off (no
+    # carry) and the same sub-tile planned with no carry, exactly
+    phase("stencil_chain_slide")
+    res_sl = run_app(app_sl, data[id(app_sl)], "stencil_chain 1536x2560 "
+                     "u16, 32 stencils, slide=512 (tiles 512x128, stages "
+                     "store_at the row loop)", 0, walks=(False,) * 4,
+                     bands=1, golden=golden_s)
+    nc_sl = no_carry(app_sl, calls=True)
+    off_sl = []
+    for (plan, inputs, rmins, _pa, _r), (q, q_in, q_rm, *_x) in zip(
+            res_sl[0], nc_sl):
+        rec = plan.record()
+        if rec["axis"] != "x" or rec["walk"] < 2 or \
+                rec["sliding"] != sorted(rec["members"]):
+            raise SystemExit(f"stencil_chain slide: {plan.f.name} not "
+                             f"carried along x: {rec}")
+        off = copy.copy(plan)
+        off.walk, off.n_buf = 1, 1
+        off_sl.append(off)
+        k = gk.launch(plan, inputs, rmins)
+        same = [torch.equal(k, gk.launch(off, inputs, rmins)),
+                torch.equal(k, gk.launch(q, q_in, q_rm))]
+        say(f"{plan.f.name}: carried {len(rec['sliding'])} members along x, "
+            f"walk {rec['walk']}, sub-tile {rec['sub_tile']}, grid "
+            f"{rec['grid']}; equal to its walk off and to no carry: {same}")
+        if not all(same):
+            raise SystemExit(f"stencil_chain slide: {plan.f.name}'s carry "
+                             "changes the values")
+
+    phase("let_half")
+    res_h = {dt: run_app(app, {}, f"Let group, {dt}, 1536x2560, tile 256x128 "
+                         "(golden: the untiled pipeline, whole-array)", 0)
+             for dt, app in apps_h.items()}
 
     phase("camera_pipe")
     golden_c = app_c.reference(**data[id(app_c)])
@@ -938,8 +1066,9 @@ def main():
             per.append({k: rec[k] for k in ("func", "tile", "sub_tile",
                                             "grid", "smem_bytes", "threads",
                                             "min_blocks", "band_walk",
-                                            "walk", "n_buf", "prefetch")}
-                       | {"ms": t})
+                                            "axis", "walk", "n_buf",
+                                            "prefetch")}
+                       | {"carried": len(rec["sliding"]), "ms": t})
         r_ms = event_ms(app.realize, 20, flush)
         row = kernel_row(
             name, "halide_tpu_torch/ops/group_kernel.py", replaces,
@@ -957,9 +1086,50 @@ def main():
             f"{per}")
         return row
 
+    def turns(fa, fb):
+        """fa and fb timed in turns (a, b, b, a): -> ([a, a], [b, b])."""
+        ta = [event_ms(fa, 30, flush, hold=True)]
+        tb = [event_ms(fb, 30, flush, hold=True) for _ in range(2)]
+        ta.append(event_ms(fa, 30, flush, hold=True))
+        return ta, tb
+
+    def carry_times(row, app, calls, nc_calls, walk_off):
+        """The carried launches against the same sub-tiles planned with no
+        carry (`nc_calls`), in turns, the carried build with its walk off,
+        and the rule's own plan with no carry; into the row and one
+        line."""
+        def run(plans, calls):
+            return lambda: [gk.launch(q, inputs, rmins) for q, (
+                _p, inputs, rmins, _a, _b) in zip(plans, calls)]
+        carried = [c[0] for c in calls]
+        uncarried = [c[0] for c in nc_calls]
+        t_c, t_nc = turns(run(carried, calls), run(uncarried, nc_calls))
+        t_off = event_ms(run(walk_off, calls), 30, flush, hold=True)
+        rule_calls = no_carry(app, calls=True, same=False)
+        t_rule = event_ms(run([c[0] for c in rule_calls], rule_calls), 30,
+                          flush, hold=True)
+        row.update(ms_carried=t_c, ms_no_carry=t_nc, ms_walk_off=t_off,
+                   ms_rule_no_carry=t_rule,
+                   carry=[{k: c.record()[k] for k in (
+                       "func", "axis", "walk", "n_buf", "sub_tile", "grid",
+                       "smem_bytes", "sliding")} for c in carried],
+                   no_carry=[{k: q.record()[k] for k in (
+                       "func", "sub_tile", "grid", "smem_bytes")}
+                       for q in uncarried],
+                   rule_no_carry=[{k: c[0].record()[k] for k in (
+                       "func", "sub_tile", "threads", "grid", "smem_bytes")}
+                       for c in rule_calls])
+        say(f"{row['name']}: carried {t_c} ms, same sub-tiles with no carry "
+            f"{t_nc} ms (device; carried, none, none, carried), the carried "
+            f"build with its walk off {t_off} ms, the rule's own plan with "
+            f"no carry {t_rule} ms; bound "
+            f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
+
     k1 = "halide_tpu/ops/pallas_group.py:696"
     k1_row(f"K1 stencil group ({app_b.name})", k1, app_b, res_b)
-    row_l = k1_row(f"K1 stencil group ({app_l.name})", k1, app_l, res_l)
+    row_l = k1_row(f"K1 stencil group ({app_l.name}, blur_x carried along "
+                   "y)", k1, app_l, res_l)
+    carry_times(row_l, app_l, res_l[0], nc_calls_l, [walk_off])
     # the band walk's own answer: the same build walking two sub-tiles a
     # block and with the walk off, in turns (on, off, off, on)
     t_on = [event_ms(lambda: gk.launch(walk_on, in_l, rm_l), 30, flush,
@@ -985,6 +1155,11 @@ def main():
     some = "the output rows of the first and last 2 bands of each launch"
     k1_row(f"K1 stencil group ({app_s.name}, 4 groups)", k1, app_s, res_s,
            plain_on=some)
+    row_sl = k1_row(f"K1 stencil group ({app_sl.name} slide=512, 4 groups "
+                    "carried along x)", k1, app_sl, res_sl,
+                    plain_on="the output rows of the first and last band "
+                             "of each launch")
+    carry_times(row_sl, app_sl, res_sl[0], nc_sl, off_sl)
     k1_row(f"K1 stencil group ({app_c.name}, tile 2560x128)", k1, app_c,
            res_c, plain_on=some)
     k1_row(f"K1 stencil group ({app_c64.name}, tile 256x64)", k1, app_c64,
@@ -998,6 +1173,8 @@ def main():
     for dt, app in apps_in.items():
         k1_row(f"K1 stencil group (integer intrinsics, {dt} lanes)", k1, app,
                res_in[dt])
+    for dt, app in apps_h.items():
+        k1_row(f"K1 stencil group (Let group, {dt})", k1, app, res_h[dt])
     # the default schedules (whole-array) beside the reference Halide's GPU
     # column (BASELINE.md, NVIDIA RTX 2060)
     for app, ref in ((app_un, "0.4-0.5 ms"), (app_hr, "0.253 ms"),
@@ -1133,8 +1310,9 @@ def main():
         f"({nbytes} bytes)")
 
     phase("breakdown")
-    for app in (app_b, app_l, app_p, app_ll, app_s, app_c, app_c64, app_8,
-                app_i, app_h, app_un, app_hr, app_wv, app_unt, app_hrt):
+    for app in (app_b, app_l, app_p, app_ll, app_s, app_sl, app_c, app_c64,
+                app_8, app_i, app_h, app_un, app_hr, app_wv, app_unt,
+                app_hrt):
         breakdown(app)
 
     phase("kernels")

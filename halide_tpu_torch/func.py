@@ -347,7 +347,9 @@ class Stage:
     # ---- misc -------------------------------------------------------------
     def prefetch(self, *a, **kw) -> "Stage":
         """(reference: src/PrefetchDirective.h) Recorded like
-        async()/ring_buffer(); the group kernel does not prefetch yet."""
+        async()/ring_buffer(): the group kernel's plan reports the request
+        (`async_requested`) beside its own prefetch, the next sub-tile's
+        windows staged by cp.async in a two-buffer walk."""
         self.func._fschedule.is_async = True
         return self
 

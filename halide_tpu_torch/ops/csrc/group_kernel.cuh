@@ -9,6 +9,10 @@
 //     no signed overflow (undefined in C++) can occur;
 //   - Halide casts (float -> int truncates toward zero, then wraps), bit
 //     counts, division rounded toward zero and bit casts;
+//   - 16-bit floats (float16 and bfloat16): __half and __nv_bfloat16 on the
+//     card, a 16-bit stand-in holding the bits in the host build; each
+//     operation is computed in f32 and rounded back to the type (round to
+//     nearest even), as the plain version's torch ops do;
 //   - the shift-inwards origin of the last sub-tile (Schedule.h
 //     ShiftInwards);
 //   - staging of a halo'd window of an input into shared memory: where the
@@ -34,6 +38,134 @@
 #endif
 
 #define HL_FN __host__ __device__ inline
+
+// --- 16-bit floats -------------------------------------------------------------
+
+#ifdef __CUDACC__
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+typedef __half hl_f16;
+typedef __nv_bfloat16 hl_bf16;
+#else
+struct hl_f16 {
+  uint16_t bits;
+};
+struct hl_bf16 {
+  uint16_t bits;
+};
+#endif
+
+template <typename T>
+struct hl_is_half : std::false_type {};
+template <>
+struct hl_is_half<hl_f16> : std::true_type {};
+template <>
+struct hl_is_half<hl_bf16> : std::true_type {};
+
+// A float type: the C++ ones and the two 16-bit ones.
+template <typename T>
+struct hl_is_float
+    : std::integral_constant<bool, std::is_floating_point<T>::value ||
+                                       hl_is_half<T>::value> {};
+
+HL_FN uint32_t hl_f32_bits(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  return u;
+}
+
+HL_FN float hl_bits_f32(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+// IEEE binary16 bits -> f32 (exact), and f32 -> binary16 bits rounded to
+// nearest even (subnormals, inf and NaN included): the host's conversions,
+// where the card has instructions.
+HL_FN float hl_f16_bits_to_f32(uint16_t h) {
+  const uint32_t sign = (uint32_t)(h & 0x8000) << 16;
+  const int e = (h >> 10) & 0x1f;
+  uint32_t m = h & 0x3ff;
+  if (e == 0x1f) return hl_bits_f32(sign | 0x7f800000u | (m << 13));
+  if (e != 0) return hl_bits_f32(sign | ((uint32_t)(e + 112) << 23) | (m << 13));
+  if (m == 0) return hl_bits_f32(sign);
+  int s = 0;                                  // a subnormal: normalise it
+  while (!(m & 0x400)) {
+    m <<= 1;
+    ++s;
+  }
+  return hl_bits_f32(sign | ((uint32_t)(113 - s) << 23) | ((m & 0x3ff) << 13));
+}
+
+HL_FN uint16_t hl_f32_to_f16_bits(float f) {
+  const uint32_t u = hl_f32_bits(f);
+  const uint16_t sign = (uint16_t)((u >> 16) & 0x8000);
+  const uint32_t a = u & 0x7fffffffu;
+  if (a > 0x7f800000u) return (uint16_t)(sign | 0x7e00);      // NaN
+  if (a >= 0x477ff000u) return (uint16_t)(sign | 0x7c00);     // to inf
+  if (a < 0x38800000u) {                     // below 2^-14: subnormal or 0
+    if (a < 0x33000000u) return sign;        // below half the least: 0
+    const int e = (int)(a >> 23);
+    const uint32_t m = (a & 0x7fffffu) | 0x800000u;
+    const int shift = 126 - e;               // 14..24
+    uint32_t r = m >> shift;
+    const uint32_t rem = m & ((1u << shift) - 1);
+    const uint32_t half = 1u << (shift - 1);
+    if (rem > half || (rem == half && (r & 1))) ++r;
+    return (uint16_t)(sign | r);
+  }
+  uint32_t r = ((a >> 13) - (112u << 10));
+  const uint32_t rem = a & 0x1fff;
+  if (rem > 0x1000 || (rem == 0x1000 && (r & 1))) ++r;
+  return (uint16_t)(sign | r);
+}
+
+HL_FN uint16_t hl_f32_to_bf16_bits(float f) {
+  const uint32_t u = hl_f32_bits(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0;   // NaN, as c10
+  return (uint16_t)((u + 0x7fffu + ((u >> 16) & 1)) >> 16);
+}
+
+// The value of a float as f32 (16-bit floats widen exactly).
+HL_FN float hl_f32(float v) { return v; }
+HL_FN double hl_f32(double v) { return v; }
+
+HL_FN float hl_f32(hl_f16 v) {
+#ifdef __CUDA_ARCH__
+  return __half2float(v);
+#else
+  uint16_t h;
+  memcpy(&h, &v, 2);
+  return hl_f16_bits_to_f32(h);
+#endif
+}
+
+HL_FN float hl_f32(hl_bf16 v) {
+#ifdef __CUDA_ARCH__
+  return __bfloat162float(v);
+#else
+  uint16_t h;
+  memcpy(&h, &v, 2);
+  return hl_bits_f32((uint32_t)h << 16);
+#endif
+}
+
+// An f32 rounded to the 16-bit float type T, to nearest even.
+template <typename T>
+HL_FN T hl_round16(float f) {
+  static_assert(hl_is_half<T>::value, "hl_round16: not a 16-bit float");
+#ifdef __CUDA_ARCH__
+  if constexpr (std::is_same<T, hl_f16>::value) return __float2half_rn(f);
+  else return __float2bfloat16_rn(f);
+#else
+  const uint16_t h = std::is_same<T, hl_f16>::value ? hl_f32_to_f16_bits(f)
+                                                    : hl_f32_to_bf16_bits(f);
+  T r;
+  memcpy(&r, &h, 2);
+  return r;
+#endif
+}
 
 // --- wrapping integer arithmetic --------------------------------------------
 
@@ -170,7 +302,16 @@ HL_FN T hl_abs(T a) {
 // then wraps into the destination width; integer narrowing wraps.
 template <typename To, typename From>
 HL_FN To hl_cast(From v) {
-  if constexpr (std::is_same<To, bool>::value) {
+  if constexpr (std::is_same<To, From>::value) {
+    return v;
+  } else if constexpr (hl_is_half<From>::value) {
+    // through f32: exact, then as from f32
+    return hl_cast<To, float>(hl_f32(v));
+  } else if constexpr (hl_is_half<To>::value) {
+    // through f32, as torch converts (an integer or a double is rounded to
+    // f32 first)
+    return hl_round16<To>(hl_cast<float, From>(v));
+  } else if constexpr (std::is_same<To, bool>::value) {
     return v != (From)0;
   } else if constexpr (std::is_floating_point<To>::value) {
     return (To)v;

@@ -46,10 +46,31 @@ Pallas kernel of the JAX package) for Hopper (sm_90a).
   row loop is parallel(), a plan is a band walk, and a block can walk
   `walk` consecutive sub-tile rows along y. With two window buffers it
   stages the next sub-tile's walking windows by the same copies while it
-  computes the current one. The planner plans a walk of 1: every longer
-  walk measured slower on the card (`tools/k1_walk_sweep.py`, PERF.md)
-  while the walk recomputes each sub-tile's producers; `walk` and `n_buf`
-  are plan fields that the chip check and the sweep set. No TMA.
+  computes the current one. No TMA.
+- Sliding-window carry (the JAX planner's, `pallas_group.py:1229-1307` and
+  `:1476-1521`; the reference's SlidingWindow.cpp): a member stored at
+  root, or at a loop of the consumer that encloses the outer loop of the
+  walk's dim, is carried along the axis the JAX grid runs in order: y
+  under the band walk, else x where the x tiles' loop is not parallel()
+  and two whole tiles lie across (the plan's `axis`; a block then walks
+  consecutive sub-tiles along x). The member's footprint must move by
+  exactly the sub-tile's step along the axis, with the same extent, an
+  overlap, and its other dims still. Its buffer is live over the whole
+  walk; at a walk's first step the block computes the whole footprint, at
+  each later one it moves the overlap with the new footprint S elements
+  to the front of the buffer (S the sub-tile's step along the axis) and
+  computes only the last S. The move goes in passes of at most S elements
+  along the axis, a barrier after each, so that an overlap larger than
+  the step never reads an element a pass has overwritten; the readers
+  index the buffer as an uncarried member's. The shifted-inwards last
+  sub-tile, nearer than S to the one before, is computed whole. A carried
+  plan walks `_CARRY_WALK` sub-tiles a block, with two window buffers
+  where a window moves along the axis and both fit; carries that no
+  sub-tile's shared memory can hold are dropped, the largest first, and
+  named in the record (`carry_dropped`). A walk of 1 (`walk` and `n_buf`
+  are plan fields that the chip check and the sweep set:
+  `tools/k1_walk_sweep.py`, PERF.md) makes every step a first step: no
+  carry.
 
 The source of one group is emitted by this module: the member Funcs' point
 expressions and their footprint arithmetic, with the fixed helpers in
@@ -88,13 +109,19 @@ checks that the staged window holds the footprint at every phase.
 
 Point functions take the arithmetic, casts, selects, the libm functions,
 lerp, saturating_cast, absd, the bit counts (popcount, clz, ctz), division
-rounded toward zero, recip and reinterpret (`csrc/group_kernel.cuh`).
-print, print_when, require and random make the plan reject the group, which
-then runs whole-array: the first three read their values back to the host,
-and random draws over the whole evaluated shape, which a sub-tile is not.
+rounded toward zero, recip, reinterpret and Let (its value bound once to a
+local the body reads by name) (`csrc/group_kernel.cuh`), over every integer
+type, f32, f64 and the 16-bit floats (float16 and bfloat16: each operation
+computed in f32 and rounded back to the type, as the plain version's torch
+ops do; their operations count at the f32 rate). print, print_when, require
+and random make the plan reject the group, which then runs whole-array: the
+first three read their values back to the host, and random draws over the
+whole evaluated shape, which a sub-tile is not. An inline Reduce is
+rejected too (eval_torch does not evaluate it yet).
 
-Not ported yet: the sliding-window carry of store_at producers (they are
-recomputed per sub-tile: same values).
+The plan records the schedule's async()/ring_buffer() request
+(`async_requested`, as the JAX planner does) beside what it did about it
+(`n_buf`, `prefetch`).
 """
 from __future__ import annotations
 
@@ -107,6 +134,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import expr as E
+from ..expr import CompileError
 from ..bounds import BoundsEngine, Box, Interval
 from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
                           full_shape)
@@ -145,6 +173,9 @@ _REGS = 64
 _WARPS_FULL = 32
 _BYTE_OPS = 10.0
 _SYNC = 512000.0
+# a plan that carries members walks this many sub-tiles a block along its
+# axis (tools/k1_walk_sweep.py --carry, PERF.md)
+_CARRY_WALK = 3
 
 _CSRC = _build.CSRC
 
@@ -233,8 +264,15 @@ class _Footprints:
                 self.divs.setdefault((id(t), i), set()).add(
                     _index_divisor(e.args[i]))
             return
-        if isinstance(e, (E.Let, E.Reduce)):
-            raise GroupUnsupported(f"{type(e).__name__} in a group")
+        if isinstance(e, E.Let):
+            # (pallas_group.py:296-301) the body sees the value's bounds
+            self.visit(e.value, scope)
+            child = dict(scope)
+            child[e.name] = self.engine.bounds(e.value, scope)
+            self.visit(e.body, child)
+            return
+        if isinstance(e, E.Reduce):
+            raise GroupUnsupported("Reduce in a group")
         for c in e.children():
             self.visit(c, scope)
 
@@ -344,9 +382,16 @@ def _ctx_resolver(ctx0: Ctx):
 _CTYPES = {
     "uint8": "uint8_t", "uint16": "uint16_t", "uint32": "uint32_t",
     "uint64": "uint64_t", "int8": "int8_t", "int16": "int16_t",
-    "int32": "int32_t", "int64": "int64_t", "float32": "float",
-    "float64": "double", "bool": "bool",
+    "int32": "int32_t", "int64": "int64_t", "float16": "hl_f16",
+    "bfloat16": "hl_bf16", "float32": "float", "float64": "double",
+    "bool": "bool",
 }
+
+
+def _is_half(t: Type) -> bool:
+    """float16 or bfloat16: stored in 16 bits, each operation computed in
+    f32 and rounded back (csrc/group_kernel.cuh hl_round16)."""
+    return t.is_float() and t.bits == 16
 
 
 def ctype(t: Type) -> str:
@@ -376,6 +421,10 @@ class _Stage:
         self.value = value          # the stripped point expr of a member
         self.smem_off = 0
         self.index = 0
+        # a carried member: the dim along the walk axis (its buffer is
+        # kept across the walk's steps, the overlap moved to its front at
+        # each); None elsewhere
+        self.carry: Optional[int] = None
 
     def pitch(self) -> int:
         """Elements from one row (dim-0 run) of the buffer to the next. A
@@ -400,22 +449,26 @@ class _Stage:
 class GroupPlan:
     """Everything the kernel and its plain version need, fixed at plan
     time; only pointers, strides, realized bounds and the output region
-    are passed at launch. The walk is passed at launch too, so that one
-    build runs any of them: on a band-walk plan `walk` may be set above 1,
-    with `n_buf` 2 where it has a walking window (the next sub-tile's copy
-    of it is then in flight by cp.async while the current one computes),
-    and `band_walk` may be set to False (one sub-tile per block). The grid
-    is `ncx` x `ncy` sub-tiles over the output extent."""
+    are passed at launch. A block walks `walk` consecutive sub-tiles along
+    the plan's `axis` ("y": a band walk; "x": a plan that carries members
+    along x), and the walk is passed at launch too, so that one build runs
+    any of them: `walk` may be set to any length, with `n_buf` 2 where it
+    has a window that moves along the axis (the next sub-tile's copy of it
+    is then in flight by cp.async while the current one computes). The
+    carried members (`sliding`) compute their full footprint at a walk's
+    first step and only the new band at each later one, so a walk of 1
+    (one sub-tile per block, `n_buf` 1) computes every sub-tile whole. The
+    sub-tiles are `ncx` x `ncy` over the output extent."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
     def shape(self) -> Tuple[int, int, int, int, Tuple[int, int]]:
         """-> (walk, n_buf, member offset, shared-memory bytes, grid) of a
-        launch: the plan's walk, or one sub-tile per block with single-
-        buffered windows where band_walk is off."""
-        walk, n_buf = (self.walk, self.n_buf) if self.band_walk else (1, 1)
-        if n_buf == 2 and not any(_walks(w) for w in self.windows):
+        launch."""
+        walk, n_buf = self.walk, self.n_buf
+        if n_buf == 2 and not any(_walks(w, self.axis)
+                                  for w in self.windows):
             raise ValueError(f"{self.f.name}: two window buffers need a "
                              "walking window")
         moff = self.fixed_bytes + n_buf * self.walk_bytes
@@ -423,17 +476,23 @@ class GroupPlan:
             raise ValueError(f"{self.f.name}: {n_buf} window buffers take "
                              f"{moff + self.member_bytes} bytes of shared "
                              "memory")
-        return (walk, n_buf, moff, moff + self.member_bytes,
-                (self.ncx, _cdiv(self.ncy, walk)))
+        grid = ((_cdiv(self.ncx, walk), self.ncy) if self.axis == "x"
+                else (self.ncx, _cdiv(self.ncy, walk)))
+        return walk, n_buf, moff, moff + self.member_bytes, grid
 
     def record(self) -> dict:
         walk, n_buf, _moff, smem, grid = self.shape()
         return {"func": self.f.name, "tile": (self.tx, self.ty),
-                "sub_tile": (self.sx, self.sy), "grid": grid,
+                "sub_tile": (self.sx, self.sy),
+                "sub_tiles": (self.ncx, self.ncy), "grid": grid,
                 "smem_bytes": smem, "threads": self.threads,
                 "min_blocks": self.min_blocks, "model": self.model,
-                "band_walk": self.band_walk, "walk": walk, "n_buf": n_buf,
+                "band_walk": self.band_walk, "axis": self.axis,
+                "walk": walk, "n_buf": n_buf,
                 "prefetch": "cp.async" if n_buf == 2 else "none",
+                "sliding": list(self.sliding),
+                "carry_dropped": dict(self.carry_dropped),
+                "async_requested": self.async_requested,
                 "part": self.part,
                 "windows": [w.name for w in self.windows],
                 "div_windows": {w.name: [(k, d) for k, d, _o, _e in w.dims
@@ -464,14 +523,19 @@ def _aligned(n: int) -> int:
     return _cdiv(n, 16) * 16
 
 
-def _member_layout(members: List["_Stage"], out_value) -> int:
+def _member_layout(members: List["_Stage"], out_value,
+                   carried=frozenset()) -> int:
     """Place the members' buffers by liveness (first fit): member k is
     written in phase k + 1 and its buffer is free after the phase of its
     last reader, a later member or the output (phase len + 1); a barrier
-    ends every phase. Sets each member's smem_off (from the member base)
-    and returns the bytes of the member region."""
-    phase = {id(m.target): k + 1 for k, m in enumerate(members)}
-    last = dict(phase)
+    ends every phase. A carried member (its target's id in `carried`)
+    keeps its buffer across the steps of a walk, so it is live in every
+    phase and shares its bytes with no other. Sets each member's smem_off
+    (from the member base) and returns the bytes of the member region."""
+    phase = {id(m.target): 0 if id(m.target) in carried else k + 1
+             for k, m in enumerate(members)}
+    last = {id(m.target): len(members) + 2 if id(m.target) in carried
+            else k + 1 for k, m in enumerate(members)}
 
     def reads(value, ph):
         def fn(e):
@@ -500,12 +564,14 @@ def _member_layout(members: List["_Stage"], out_value) -> int:
 
 def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
                sub_tile: Optional[Tuple[int, int]] = None,
-               threads: Optional[int] = None, part: str = "all") -> GroupPlan:
+               threads: Optional[int] = None, part: str = "all",
+               carry: bool = True) -> GroupPlan:
     """The plan of f's group over `box`. The sub-tile and the threads a
     block are the rule's choice (`_plan_score`) unless given (the sweep);
     `part` "stage" or "compute" emits a kernel that only stages the windows
     or only computes (from whatever shared memory holds), for timing the
-    two apart."""
+    two apart. With `carry` False no member is carried (`_carry_wanted`):
+    the plan the schedule would get without its store levels."""
     if part not in ("all", "stage", "compute"):
         raise ValueError(f"part {part!r}")
     if len(f._defs) != 1 or len(f._defs[0].values) != 1:
@@ -572,6 +638,8 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         if ydim is not None:
             sc[ydim] = Interval(y0, y0 + sy - 1)
         return sc
+
+    _check_fold_storage(members, footprints(sub_scope(0, tx, 0, ty)))
 
     def stages_for(sx, sy):
         """Classify every dim of every member and input footprint of a
@@ -653,40 +721,106 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     ext_y = extents[yi] if yi is not None else 1
     other = math.prod(e for i, e in enumerate(extents) if i not in (xi, yi))
     out_type = f._defs[0].values[0].dtype
+    # the carry: the walk axis and the members whose schedule asks for it
+    slide = _carry_axis(f, xdim, ydim, extents[xi] // tx, band_walk) \
+        if carry else None
+    want = {id(m) for m in members if slide and _carry_wanted(
+        m, f, slide[1])}
 
-    def layout(stages):
+    def layout(stages, carried=frozenset(), axis="y"):
         """-> (fixed window bytes, walking window bytes, member bytes). A
-        walking window (one with a y dim) moves as a block walks along y,
-        so it is restaged every step; the others are staged once."""
+        walking window (one that moves along `axis`) moves as a block
+        walks, so it is restaged every step; the others are staged once.
+        `carried`: the ids of the carried members' targets."""
         fixed = sum(_aligned(s.nbytes()) for s in stages
-                    if s.value is None and not _walks(s))
+                    if s.value is None and not _walks(s, axis))
         moving = sum(_aligned(s.nbytes()) for s in stages
-                     if s.value is None and _walks(s))
+                     if s.value is None and _walks(s, axis))
         by_id = {id(s.target): s for s in stages}
         mem = _member_layout([by_id[id(m)] for m in members
-                              if id(m) in by_id], svalue)
+                              if id(m) in by_id], svalue, carried)
         return fixed, moving, mem
+
+    def carry_set(sx, sy, stages):
+        """The members carried at sub-tile (sx, sy), as the JAX planner's
+        gates (pallas_group.py:1243-1307) decide: asked for by the schedule,
+        the footprint moving along the walk axis by exactly the step (the
+        sub-tile's extent) with the same extent and an overlap, its other
+        dims not moving. Those shared memory cannot hold are dropped, the
+        largest first. -> ({stage name: walk dim}, {name: reason})."""
+        if not want:
+            return {}, {}
+        axis, dim = slide
+        step = sx if axis == "x" else sy
+        cand = {}
+        for st in stages:
+            if st.value is None or id(st.target) not in want:
+                continue
+            jw = [v.name for v in st.target._defs[0].args].index(dim)
+            moves = [j for j, (k, _d, _o, _e) in enumerate(st.dims)
+                     if k == axis]
+            if moves == [jw] and st.dims[jw][3] > step:
+                cand[st.name] = jw
+        by_name = {st.name: st for st in stages}
+        dropped = {}
+        while cand and sum(layout(stages, {id(by_name[n].target)
+                                           for n in cand}, axis)) \
+                > _SMEM_LIMIT:
+            big = max(cand, key=lambda n: (by_name[n].nbytes(), n))
+            del cand[big]
+            dropped[big] = (f"shared memory: carried with the others, the "
+                            f"group passes {_SMEM_LIMIT} bytes at sub-tile "
+                            f"{sx}x{sy}")
+        return cand, dropped
 
     def candidates(sx, sy, stages):
         """The rule's terms of sub-tile (sx, sy) at each thread count."""
-        smem = sum(layout(stages))
+        carried, dropped = carry_set(sx, sy, stages)
+        axis = slide[0] if carried else "y"
+        walk, n_buf = (_CARRY_WALK, 2) if carried else (1, 1)
+        fixed, moving, mem = layout(stages, {id(st.target) for st in stages
+                                             if st.name in carried}, axis)
+        if n_buf == 2 and (not moving or fixed + 2 * moving + mem
+                           > _SMEM_LIMIT):
+            n_buf = 1
+        smem = fixed + n_buf * moving + mem
         if smem > _SMEM_LIMIT:
             return []
+        step = sx if axis == "x" else sy
         out_pts = sx * sy * other
+
+        def share(st):
+            """The share of a member's footprint a step computes: a
+            carried one its band after the walk's first step."""
+            if st.name not in carried:
+                return 1.0
+            e = st.dims[carried[st.name]][3]
+            return (e + (walk - 1) * step) / (walk * e)
+
+        def moved(st):
+            """Slots a step spends moving a carried member's overlap (a
+            load and a store an element) after the walk's first step."""
+            if st.name not in carried:
+                return 0.0
+            e = st.dims[carried[st.name]][3]
+            return 2 * (walk - 1) / walk * (e - step) / e * math.prod(
+                x for _k, _d, _o, x in st.dims)
         ops = _weighted(point_ops(svalue)) * out_pts + sum(
-            _weighted(point_ops(s.value)) * math.prod(
-                e for _k, _d, _o, e in s.dims)
-            for s in stages if s.value is not None)
+            _weighted(point_ops(st.value)) * share(st) * math.prod(
+                e for _k, _d, _o, e in st.dims) + moved(st)
+            for st in stages if st.value is not None)
         free = _weighted(point_ops(svalue)) * out_pts + sum(
             _weighted(point_ops(s.value)) * sx * sy * math.prod(
                 e for k, _d, _o, e in s.dims if k == "s")
             for s in stages if s.value is not None)
         staged = sum(s.data_bytes() for s in stages if s.value is None) \
             + out_pts * itemsize(out_type)
-        nblocks = _cdiv(ext_x, sx) * _cdiv(ext_y, sy)
+        ncx, ncy = _cdiv(ext_x, sx), _cdiv(ext_y, sy)
+        nblocks = (_cdiv(ncx, walk) * ncy if axis == "x"
+                   else ncx * _cdiv(ncy, walk))
         # outputs the grid computes per output of the extent: the last
         # column and row, shifted inwards, recompute their overlap
-        cover = nblocks * sx * sy / (ext_x * ext_y)
+        cover = ncx * ncy * sx * sy / (ext_x * ext_y)
         out = []
         for nt in _THREADS:
             if nt > out_pts and nt > _THREADS[0]:
@@ -697,7 +831,8 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
                          ops_per_out=ops / out_pts,
                          bytes_per_out=staged / out_pts, blocks=nblocks,
                          phases=len(members) + 2, out_pts=out_pts,
-                         cover=cover)
+                         cover=cover, carried=carried,
+                         dropped=dropped, walk=walk, n_buf=n_buf, axis=axis)
             terms["score"] = _plan_score(terms)
             out.append(terms)
         return out
@@ -738,11 +873,16 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     sx, sy = best["sub_tile"]
     stages = stages_of[(sx, sy)]
     _check_div_cover(stages, footprints, sub_scope, sx, sy)
-    windows = ([s for s in stages if s.value is None and not _walks(s)]
-               + [s for s in stages if s.value is None and _walks(s)])
+    axis, carried = best["axis"], best["carried"]
+    for st in stages:
+        st.carry = carried.get(st.name) if st.value is not None else None
+    windows = ([s for s in stages if s.value is None and not _walks(s, axis)]
+               + [s for s in stages if s.value is None and _walks(s, axis)])
     by_id = {id(s.target): s for s in stages}
     ordered = windows + [by_id[id(m)] for m in members if id(m) in by_id]
-    fixed_bytes, walk_bytes, member_bytes = layout(stages)
+    fixed_bytes, walk_bytes, member_bytes = layout(
+        stages, {id(st.target) for st in stages if st.carry is not None},
+        axis)
     off = 0
     for k, s in enumerate(ordered):
         s.index = k
@@ -764,7 +904,10 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         candidates=cands, part=part,
         windows=windows, members=ordered[len(windows):],
         fixed_bytes=fixed_bytes, walk_bytes=walk_bytes,
-        member_bytes=member_bytes, band_walk=band_walk, walk=1, n_buf=1)
+        member_bytes=member_bytes, band_walk=band_walk, axis=axis,
+        walk=best["walk"], n_buf=best["n_buf"],
+        sliding=sorted(carried), carry_dropped=best["dropped"],
+        async_requested=_async_requested(f, members))
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
 
@@ -855,15 +998,84 @@ def _plan_score(c: dict) -> float:
 
 
 def plan_key(c: dict):
-    """The planner's order of candidates: the rule, then the larger
-    sub-tile, then fewer threads."""
-    return (_plan_score(c), -c["sub_tile"][0] * c["sub_tile"][1],
-            c["threads"])
+    """The planner's order of candidates: the most carried members (the
+    schedule's request: a carry is dropped only where no sub-tile holds it
+    in shared memory), then the rule, then the larger sub-tile, then fewer
+    threads."""
+    return (-len(c.get("carried", ())), _plan_score(c),
+            -c["sub_tile"][0] * c["sub_tile"][1], c["threads"])
 
 
-def _walks(s: "_Stage") -> bool:
-    """A stage that moves with the sub-tile's y origin."""
-    return any(k == "y" for k, _d, _o, _e in s.dims)
+def _walks(s: "_Stage", axis: str = "y") -> bool:
+    """A stage that moves with the sub-tile's origin along `axis`."""
+    return any(k == axis for k, _d, _o, _e in s.dims)
+
+
+def _carry_axis(f: Func, xdim: str, ydim: Optional[str], ntx_full: int,
+                band_walk: bool) -> Optional[Tuple[str, str]]:
+    """(axis, its pure dim) along which f's group may carry members, as the
+    JAX planner's sequential grid dim runs (pallas_group.py:1230-1241): y
+    under the band walk (its band split), else x where the outer var of
+    x's split is not parallel() ("arbitrary") and at least two whole tiles
+    lie across (the steps of the JAX planner's interior grid); else
+    None."""
+    if band_walk:
+        return "y", ydim
+    s0 = f._defs[0].schedule
+    outer_of = {sp.old: sp.outer for sp in s0.splits if sp.kind == "split"}
+    par = {d.var for d in s0.dims if d.for_type == ForType.PARALLEL}
+    if outer_of.get(xdim) not in par and ntx_full >= 2:
+        return "x", xdim
+    return None
+
+
+def _carry_wanted(m: Func, f: Func, dim: str) -> bool:
+    """The schedule asks m to be carried along f's pure dim `dim`: m is
+    stored at root, or at a loop of f that encloses the outer loop of
+    dim's split in f's loop order (pallas_group.py:1255-1268; the
+    reference's SlidingWindow.cpp:347-453). A member stored where it is
+    computed is not carried."""
+    slv = m._fschedule.store_level
+    if not slv.defined() or slv.is_inlined():
+        return False
+    if slv.is_root():
+        return True
+    s0 = f._defs[0].schedule
+    order = [d.var for d in s0.dims]
+    outer = {sp.old: sp.outer for sp in s0.splits
+             if sp.kind == "split"}.get(dim)
+    var = getattr(slv.var, "name", slv.var)
+    return (slv.func is f and outer is not None and var in order
+            and outer in order and order.index(var) > order.index(outer))
+
+
+def _async_requested(f: Func, members) -> bool:
+    """async() or ring_buffer() on a member or the consumer, as the JAX
+    planner records it (pallas_group.py:1216-1219). K1's answer is the
+    plan's own: the two-buffer walk stages the next sub-tile's windows
+    by cp.async while the current one computes (`n_buf`, `prefetch`)."""
+    return any(g._fschedule.is_async or bool(g._fschedule.ring_buffer_extent)
+               for g in list(members) + [f])
+
+
+def _check_fold_storage(members, fp_tile):
+    """fold_storage(var, k) of a member whose footprint over one tile
+    spans more than k entries of var raises, as the JAX planner does
+    (pallas_group.py:1111-1125; the reference's
+    halide_error_fold_factor_too_small, StorageFolding.cpp:219-264)."""
+    for m in members:
+        box = fp_tile.boxes.get(id(m))
+        names = [v.name for v in m._defs[0].args]
+        for sd in m._fschedule.storage_dims:
+            if box is None or sd.var not in names:
+                continue
+            need = int(box.dims[names.index(sd.var)].extent())
+            if sd.fold_factor is not None and need > sd.fold_factor:
+                raise CompileError(
+                    f"fold_storage: {m.name} requires {need} live entries "
+                    f"of {sd.var} per tile, but the fold factor is "
+                    f"{sd.fold_factor} (the reference fails with "
+                    "halide_error_fold_factor_too_small)")
 
 
 def _check_div_cover(stages, footprints, sub_scope, sx, sy):
@@ -1070,6 +1282,11 @@ def _field(s: "_Stage") -> str:
 
 
 def _float_lit(v: float, t: Type) -> str:
+    if _is_half(t):
+        # the value rounded to the type (as the plain version's constant
+        # tensor is), written as the f32 literal of that value
+        v16 = torch.tensor(v, dtype=torch_dtype(t)).float().item()
+        return f"hl_round16<{ctype(t)}>({_float_lit(v16, Type('float', 32))})"
     if t.bits == 32:
         import numpy as np
         v32 = float(np.float32(v))
@@ -1115,11 +1332,26 @@ class _PointEmitter:
         return name
 
     def val(self, e) -> str:
+        if isinstance(e, E.Variable):       # by name: a Let may rebind it
+            return self._val(e)
         hit = self.memo.get(id(e))
         if hit is None:
             hit = self._val(e)
             self.memo[id(e)] = hit
         return hit
+
+    def _let(self, e: E.Let) -> str:
+        """The value once, as a local the body reads by name (not
+        substituted into the body, which would repeat its work). What the
+        body computes is forgotten after it: it may read the name."""
+        v = self.val(e.value)
+        scope, memo = self.scope, self.memo
+        self.scope = dict(scope, **{e.name: v})
+        self.memo = {} if e.name in scope else dict(memo)
+        try:
+            return self.val(e.body)
+        finally:
+            self.scope, self.memo = scope, memo
 
     def _val(self, e) -> str:
         if isinstance(e, E.IntImm):
@@ -1149,7 +1381,13 @@ class _PointEmitter:
             return self.let(e.dtype, f"hl_reinterpret<{ctype(e.dtype)}, "
                                      f"{ctype(e.value.dtype)}>("
                                      f"{self.val(e.value)})")
+        if isinstance(e, E.Let):
+            return self._let(e)
         raise GroupUnsupported(f"{type(e).__name__} in a kernel")
+
+    def _half(self, t: Type, rhs: str) -> str:
+        """An f32 result rounded to the 16-bit float type t."""
+        return self.let(t, f"hl_round16<{ctype(t)}>({rhs})")
 
     def _binary(self, e: E.Binary) -> str:
         a, b = self.val(e.a), self.val(e.b)
@@ -1158,7 +1396,19 @@ class _PointEmitter:
         helpers = {"add": "hl_add", "sub": "hl_sub", "mul": "hl_mul",
                    "div": "hl_div", "mod": "hl_mod", "min": "hl_min",
                    "max": "hl_max", "shl": "hl_shl", "shr": "hl_shr"}
-        if e.op in helpers:
+        if _is_half(t):
+            # computed in f32, rounded back after every operation, as
+            # eval_torch's ops on 16-bit tensors: mod as its a - b *
+            # floor(a / b), three roundings
+            a, b = f"hl_f32({a})", f"hl_f32({b})"
+            if e.op == "mod":
+                q = self._half(t, f"{a} / {b}")
+                m = self._half(t, f"{b} * floorf(hl_f32({q}))")
+                return self._half(t, f"{a} - hl_f32({m})")
+            if e.op in helpers and e.op not in ("shl", "shr"):
+                return self._half(t, f"{helpers[e.op]}<float>({a}, {b})")
+            ct = "float"
+        elif e.op in helpers:
             return self.let(e.dtype, f"{helpers[e.op]}<{ct}>({a}, {b})")
         syms = {"eq": "==", "ne": "!=", "lt": "<", "le": "<=", "gt": ">",
                 "ge": ">=", "and": "&&", "or": "||", "bitand": "&",
@@ -1166,24 +1416,30 @@ class _PointEmitter:
         if e.op in syms:
             return self.let(e.dtype, f"({ctype(e.dtype)})({a} {syms[e.op]} "
                                      f"{b})")
-        raise GroupUnsupported(f"binary op {e.op}")
+        raise GroupUnsupported(f"binary op {e.op} of {t}")
 
     def _intrin(self, e: E.Intrin) -> str:
         n = e.name
         if n in ("likely", "strict_float"):
             return self.val(e.args[0])
-        if n in _MATH_F:
-            if not e.dtype.is_float() or e.dtype.bits not in (32, 64):
+        half = _is_half(e.dtype)
+        if n in _MATH_F or (n == "round" and e.dtype.is_float()):
+            if not e.dtype.is_float():
                 raise GroupUnsupported(f"{n} of {e.dtype}")
-            fn = n + ("f" if e.dtype.bits == 32 else "")
+            fn = "rint" if n == "round" else n
+            fn += "" if e.dtype.bits == 64 else "f"
+            if half:
+                args = ", ".join(f"hl_f32({self.val(a)})" for a in e.args)
+                return self._half(e.dtype, f"{fn}({args})")
             args = ", ".join(self.val(a) for a in e.args)
             return self.let(e.dtype, f"{fn}({args})")
-        if n == "round" and e.dtype.is_float():
-            fn = "rintf" if e.dtype.bits == 32 else "rint"
-            return self.let(e.dtype, f"{fn}({self.val(e.args[0])})")
         if n == "abs":
             at = e.args[0].dtype
-            v = f"hl_abs<{ctype(at)}>({self.val(e.args[0])})"
+            v = self.val(e.args[0])
+            if _is_half(at):
+                v = f"hl_abs<float>(hl_f32({v}))"
+            else:
+                v = f"hl_abs<{ctype(at)}>({v})"
             return self.let(e.dtype, f"hl_cast<{ctype(e.dtype)}>({v})")
         if n == "absd":
             at = ctype(e.args[0].dtype)
@@ -1191,10 +1447,13 @@ class _PointEmitter:
             return self.let(e.dtype, f"hl_absd<{ctype(e.dtype)}, {at}>("
                                      f"{a}, {b})")
         if n == "saturating_cast":
-            v = self.val(e.args[0])
+            v, at = self.val(e.args[0]), e.args[0].dtype
+            if half:                        # float -> float: a plain cast
+                return self.let(e.dtype, f"hl_cast<{ctype(e.dtype)}>({v})")
+            if _is_half(at):
+                v, at = f"hl_f32({v})", Type("float", 32)
             return self.let(e.dtype, "hl_saturating_cast<"
-                                     f"{ctype(e.dtype)}, "
-                                     f"{ctype(e.args[0].dtype)}>({v})")
+                                     f"{ctype(e.dtype)}, {ctype(at)}>({v})")
         if n == "bitnot":
             return self.let(e.dtype, f"({ctype(e.dtype)})(~"
                                      f"{self.val(e.args[0])})")
@@ -1207,12 +1466,17 @@ class _PointEmitter:
             return self.let(e.dtype, f"hl_cast<{ctype(e.dtype)}>(hl_{n}<"
                                      f"{ctype(at)}>({self.val(e.args[0])}))")
         if n in ("div_rtz", "mod_rtz"):
+            if _is_half(e.args[0].dtype):
+                raise GroupUnsupported(f"{n} of {e.args[0].dtype}")
             a, b = self.val(e.args[0]), self.val(e.args[1])
             return self.let(e.dtype, f"hl_{n}<{ctype(e.args[0].dtype)}>("
                                      f"{a}, {b})")
         if n == "recip":
-            if not e.dtype.is_float() or e.dtype.bits not in (32, 64):
+            if not e.dtype.is_float():
                 raise GroupUnsupported(f"recip of {e.dtype}")
+            if half:
+                return self._half(e.dtype,
+                                  f"1.0f / hl_f32({self.val(e.args[0])})")
             ct = ctype(e.dtype)
             return self.let(e.dtype, f"hl_div<{ct}>(({ct})1, "
                                      f"{self.val(e.args[0])})")
@@ -1297,6 +1561,12 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         f"constexpr int WALK_BYTES = {plan.walk_bytes};",
         f"constexpr int THREADS = {plan.threads};",
         f"constexpr int MIN_BLOCKS = {plan.min_blocks};",
+        "constexpr bool AXIS_X = %s;  // a block walks along x (else y)"
+        % ("true" if plan.axis == "x" else "false"),
+        "constexpr int AX = %d;       // the walk axis's output dim"
+        % (plan.xi if plan.axis == "x" or plan.yi is None else plan.yi),
+        "constexpr int STEP = %d;     // the sub-tile's extent along it"
+        % (plan.sx if plan.axis == "x" else plan.sy),
         "constexpr bool STAGE = %s;"
         % ("false" if plan.part == "compute" else "true"),
         "constexpr bool COMPUTE = %s;"
@@ -1388,7 +1658,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                      f"{s.smem_off});")
             continue
         k = plan.windows.index(s)
-        buf = " + buf * WALK_BYTES" if _walks(s) else ""
+        buf = " + buf * WALK_BYTES" if _walks(s, plan.axis) else ""
         L += ["  {", "  " + exts[k],
               f"    t.{cn}_ph = hl_window_phase<{ct}, {len(s.dims)}>("
               f"p.in{k}, t.{cn}_lo, ext{k});",
@@ -1408,24 +1678,51 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
         call = (f"hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, t.{cn}_ph, "
                 f"{w.pitch()}, p.in{k}, t.{cn}_lo, ext{k}, tid, nth);")
-        L.append(f"  {call}" if _walks(w) else f"  if (fixed) {call}")
+        L.append(f"  {call}" if _walks(w, plan.axis)
+                 else f"  if (fixed) {call}")
     L += ["}", ""]
+    step = plan.sx if plan.axis == "x" else plan.sy
+    carried = [m for m in plan.members if m.carry is not None]
     L += [
         "// Phase 1 + k evaluates member k over its footprint, the last",
         "// phase writes the sub-tile. Threads tid, tid + nth, ... share",
-        "// the work.",
+        "// the work. A carried member computes its whole footprint at the",
+        "// first step of a walk (`first`), and at each later one only the",
+        "// last S elements along the walk (S the sub-tile's extent there):",
+        "// shift() has moved the rest, computed at the step before, to the",
+        "// front of its buffer.",
         "HL_FN void phase(const Params& p, int bx, int r, int buf, int tid,",
-        "                 int nth, unsigned char* smem, int ph) {",
+        "                 int nth, unsigned char* smem, int ph, bool first) {",
         "  const Tile t = tile_at(p, bx, r, buf, smem);",
+        "  (void)first;",
         "  switch (ph) {",
     ]
     for k, m in enumerate(plan.members):
-        cn = _field(m)
+        cn, ct = _field(m), ctype(m.type)
+        exts = [e for _k, _d, _o, e in m.dims]
+
+        def point_body(skip=0, j=None):
+            """The point at c (c + skip along dim j) into its element (the
+            walk's index i where the box is the whole footprint)."""
+            cs = [f"(c{d} + {skip})" if d == j else f"c{d}"
+                  for d in range(len(exts))]
+            at = "i" if j is None else " + ".join(
+                f"{c} * {math.prod(exts[:d])}" for d, c in enumerate(cs))
+            return [f"      (({ct}*)t.{cn})[{at}] = point_{cn}(t, "
+                    + ", ".join(f"t.{cn}_lo[{d}] + {c}"
+                                for d, c in enumerate(cs)) + ");"]
         L.append(f"  case {k + 1}: {{")
-        body = [f"      (({ctype(m.type)}*)t.{cn})[i] = point_{cn}(t, "
-                + ", ".join(f"t.{cn}_lo[{d}] + c{d}"
-                            for d in range(len(m.dims))) + ");"]
-        walk_box(L, [e for _k, _d, _o, e in m.dims], body)
+        if m.carry is None:
+            walk_box(L, exts, point_body())
+        else:
+            j, e = m.carry, exts[m.carry]
+            L.append("    if (first) {")
+            walk_box(L, exts, point_body())
+            L.append("    } else {")
+            band = list(exts)
+            band[j] = step
+            walk_box(L, band, point_body(e - step, j))
+            L.append("    }")
         L += ["    break;", "  }"]
     L.append(f"  case {len(plan.members) + 1}: {{")
     ext, lo = [], []
@@ -1448,28 +1745,80 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     L += ["    break;", "  }", "  }", "}", ""]
     nphase = len(plan.members) + 2
     L += [f"constexpr int NPHASE = {nphase};", ""]
+    # the shift of the carried members' overlaps, in passes of at most S
+    # elements along the walk: within a pass no element is both read and
+    # written, and a barrier ends each pass
+    passes = max((_cdiv(m.dims[m.carry][3] - step, step) for m in carried),
+                 default=0)
     L += [
-        "// One block: column bx of the sub-tile grid, walking sub-tile rows",
-        "// [by * walk, by * walk + walk) in order (one row where the band",
-        "// walk is off). With two window buffers the next row's walking",
-        "// windows are staged while the current row computes. STAGE and",
-        "// COMPUTE are both true but in the kernels that time the two apart.",
+        f"constexpr bool CARRY = {'true' if carried else 'false'};",
+        f"constexpr int SHIFT_PASSES = {passes};",
+        "",
+        "// Pass q of moving each carried member's overlap with the next",
+        "// sub-tile (its elements S..E-1 along the walk) S to the front.",
+        "HL_FN void shift(const Params& p, int bx, int r, int buf, int tid,",
+        "                 int nth, unsigned char* smem, int q) {",
+        "  const Tile t = tile_at(p, bx, r, buf, smem);",
+        "  (void)t; (void)tid; (void)nth;",
+        "  switch (q) {",
+    ]
+    for q in range(passes):
+        L.append(f"  case {q}: {{")
+        for m in carried:
+            j, cn, ct = m.carry, _field(m), ctype(m.type)
+            exts = [e for _k, _d, _o, e in m.dims]
+            n = min(step, exts[j] - step - q * step)
+            if n <= 0:
+                continue
+            box = list(exts)
+            box[j] = n
+            at = " + ".join(
+                (f"(c{d} + {q * step})" if d == j else f"c{d}")
+                + f" * {math.prod(exts[:d])}" for d in range(len(exts)))
+            walk_box(L, box, [
+                f"      {ct}* b = ({ct}*)t.{cn};",
+                f"      b[{at}] = b[{at} + {step * math.prod(exts[:j])}];"])
+        L += ["    break;", "  }"]
+    L += ["  }", "}", ""]
+    L += [
+        "// One block: walks `walk` consecutive sub-tiles in order along the",
+        "// axis, [k0, k0 + walk) of the p.rows there, at column bx or row by",
+        "// of the grid across it (one sub-tile where the walk is off). With",
+        "// two window buffers the next sub-tile's walking windows are staged",
+        "// while the current one computes. STAGE and COMPUTE are both true",
+        "// but in the kernels that time the two apart.",
         "HL_FN void run_block(const Params& p, int bx, int by, int tid,",
         "                     int nth, unsigned char* smem) {",
-        "  const int r0 = by * p.walk;",
-        "  const int r1 = hl_min<int>(r0 + p.walk, p.rows);",
-        "  for (int r = r0; r < r1; ++r) {",
-        "    const int buf = p.nbuf == 2 ? (r - r0) & 1 : 0;",
-        "    if (STAGE && (r == r0 || p.nbuf == 1)) {",
-        "      stage(p, bx, r, buf, tid, nth, smem, r == r0);",
+        "  const int k0 = (AXIS_X ? bx : by) * p.walk;",
+        "  const int k1 = hl_min<int>(k0 + p.walk, p.rows);",
+        "  for (int k = k0; k < k1; ++k) {",
+        "    const int cx = AXIS_X ? k : bx, cy = AXIS_X ? by : k;",
+        "    const int buf = p.nbuf == 2 ? (k - k0) & 1 : 0;",
+        "    // a carried step: not the walk's first, and S past the one",
+        "    // before (the shifted-inwards last sub-tile is nearer: computed",
+        "    // whole)",
+        "    const bool first = !CARRY || k == k0 ||",
+        "        hl_shift_inwards(p.out_min[AX], p.out_ext[AX], STEP, k) -",
+        "        hl_shift_inwards(p.out_min[AX], p.out_ext[AX], STEP, k - 1) !=",
+        "        STEP;",
+        "    const bool staged = STAGE && (k == k0 || p.nbuf == 1);",
+        "    if (staged) stage(p, cx, cy, buf, tid, nth, smem, k == k0);",
+        "    if (COMPUTE && !first) shift(p, cx, cy, buf, tid, nth, smem, 0);",
+        "    if (staged || (COMPUTE && !first)) {",
         "      hl_async_wait();",
         "      hl_sync();",
         "    }",
-        "    const bool ahead = STAGE && p.nbuf == 2 && r + 1 < r1;",
-        "    if (ahead) stage(p, bx, r + 1, buf ^ 1, tid, nth, smem, false);",
+        "    for (int q = 1; COMPUTE && !first && q < SHIFT_PASSES; ++q) {",
+        "      shift(p, cx, cy, buf, tid, nth, smem, q);",
+        "      hl_sync();",
+        "    }",
+        "    const bool ahead = STAGE && p.nbuf == 2 && k + 1 < k1;",
+        "    if (ahead)",
+        "      stage(p, AXIS_X ? k + 1 : bx, AXIS_X ? by : k + 1, buf ^ 1, tid,",
+        "            nth, smem, false);",
         "    for (int ph = 1; COMPUTE && ph < NPHASE; ++ph) {",
         "      if (ph > 1) hl_sync();",
-        "      phase(p, bx, r, buf, tid, nth, smem, ph);",
+        "      phase(p, cx, cy, buf, tid, nth, smem, ph, first);",
         "    }",
         "    if (ahead) hl_async_wait();",
         "    hl_sync();",
@@ -1590,7 +1939,8 @@ def build(plan: GroupPlan) -> ctypes.CDLL:
 def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     """The launcher's arguments after the kernel's own constants: pointers,
     strides and realized bounds per pipeline dim, the output region, the
-    sub-tile rows, the walk (GroupPlan.shape) and the grid."""
+    sub-tiles along the walk axis, the walk (GroupPlan.shape) and the
+    grid."""
     args = []
     for w, arr, rmins in zip(plan.windows, inputs, real_mins):
         nd = arr.ndim
@@ -1603,7 +1953,8 @@ def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     args += [out.stride(n - 1 - j) for j in range(n)]
     args += list(plan.mins) + list(plan.extents)
     walk, n_buf, moff, smem, grid = plan.shape()
-    args += [plan.ncy, walk, n_buf, moff, smem, grid[0], grid[1]]
+    args += [plan.ncx if plan.axis == "x" else plan.ncy, walk, n_buf, moff,
+             smem, grid[0], grid[1]]
     return args
 
 

@@ -510,7 +510,7 @@ def test_band_walk_plan_fields():
         assert grid == (-(-ext_x // plan.sx), -(-(-(-ext_y // plan.sy)) // 3))
         assert p2.record()["prefetch"] == "cp.async"
         off = copy.copy(p2)
-        off.band_walk = False
+        off.walk, off.n_buf = 1, 1
         assert off.shape()[:2] == (1, 1)
         assert off.record()["prefetch"] == "none"
         unwalked = copy.copy(p2)
@@ -528,7 +528,7 @@ def _walks_of(plan):
         for n_buf in (1, 2) if any(gk._walks(w) for w in plan.windows) \
                 else (1,):
             p = copy.copy(plan)
-            p.band_walk, p.walk, p.n_buf = True, walk, n_buf
+            p.walk, p.n_buf = walk, n_buf
             out.append(p)
     return out
 
@@ -562,12 +562,15 @@ def test_band_walk_source_on_host_matches_golden(case, dtype, tmp_path):
 def test_band_walk_cp_async_route_on_host(tmp_path):
     """linear_blur in 4 full-width bands is a band walk; its f32 window is
     staged ahead by cp.async in a two-buffer walk, which the host build
-    copies at once."""
+    copies at once. Its store_root blur_x is carried down the walk, which
+    is planned at the carried walk's length."""
     app, data, out, (plan, inputs, rmins, _p, _r) = _group_call(
         "linear_blur", width=64, height=1024)
     rec = plan.record()
     assert rec["band_walk"] and rec["tile"] == (64, 256)
-    assert (rec["walk"], rec["n_buf"], rec["prefetch"]) == (1, 1, "none")
+    assert rec["sliding"] == ["blur_x"] and rec["axis"] == "y"
+    assert (rec["walk"], rec["n_buf"], rec["prefetch"]) == (
+        gk._CARRY_WALK, 2, "cp.async")
     assert any(gk._walks(w) for w in plan.windows)
     np.testing.assert_allclose(out, app.reference(**data), rtol=1e-4,
                                atol=1e-4)
@@ -977,6 +980,180 @@ def test_window_staging_kernel_matches_plain_version_on_the_card(dtype, w):
     out = pipe.realize([w, a.shape[0]])
     assert gk.launches == launches + 1
     plan, inputs, rmins, params, _r = gk.group_call(pipe)
+    plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, plain)
+
+
+# ---------------------------------------------------------------------------
+# Let in a group, 16-bit floats in a group, and the async()/ring_buffer()
+# request in the plan's record
+# ---------------------------------------------------------------------------
+
+def _let_pipeline(m, dtype, a_np, tile=(32, 16), device="cpu"):
+    """chip_smoke.let_group (a member whose value is a hand-built expr.Let)
+    on `a_np` converted to `dtype`, tiled: the group kernel's path."""
+    import chip_smoke as cs
+    if m is ht:
+        a = torch.from_numpy(a_np).to(getattr(torch, dtype)).to(device)
+    else:
+        import jax.numpy as jnp
+        a = jnp.asarray(a_np).astype(getattr(jnp, dtype))
+    return cs.let_group(m, dtype, a, tile)
+
+
+def _let_input(dtype, h=40, w=48):
+    """int32 in [-300, 300); the floats k / 16 in [0.5, 2): every input is
+    exact in a 16-bit float, a sum of two is exact, and every value is
+    positive (see test_half_group_matches_jax)."""
+    rng = np.random.default_rng(17)
+    if dtype == "int32":
+        return rng.integers(-300, 300, (h, w)).astype(np.int32)
+    return (rng.integers(8, 32, (h, w)) / 16).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_let_group_matches_jax(dtype, tmp_path):
+    """A member whose value is a Let: both packages' group plans take it
+    (no reject), the emitted source binds the value once to a local that
+    the body reads by name, and the g++ build, the plain version and the
+    JAX package agree (bit for bit: the same f32 operations, no libm)."""
+    import halide_tpu as hl
+    from halide_tpu.ops import pallas_group as pg
+    a = _let_input(dtype)
+    pipe = _let_pipeline(ht, dtype, a)
+    before = sum(gk.rejects.values())
+    got = pipe.realize([48, 40], device="cpu").to_numpy()
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
+    assert plan.record()["members"] == ["p"]
+    pg._last_plan = None
+    ref = np.asarray(_let_pipeline(hl, dtype, a).realize([48, 40])
+                     .to_numpy())
+    assert pg._last_plan is not None          # the JAX group engaged
+    np.testing.assert_array_equal(got, ref)
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros((40, 48), dtype=getattr(torch, dtype))
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), got)
+
+
+def test_let_is_emitted_once_not_substituted():
+    a = _let_input("int32")
+    pipe = _let_pipeline(ht, "int32", a)
+    pipe.realize([48, 40], device="cpu")
+    plan = gk.group_call(pipe, "cpu")[0]
+    # the two reads of the sum e[x - 1, y] + e[x + 1, y + 1] once, its
+    # local read twice by the product and once by the final add
+    import re
+    body = plan.source.split("point_s")[1].split("return")[0]
+    assert body.count("t.s0_inp[") == 2, body
+    v = re.search(r"hl_mul<int32_t>\((t\d+), \1\)", body)
+    assert v, body
+    assert re.search(r"hl_add<int32_t>\(t\d+, %s\)" % v.group(1), body), body
+    assert gk.point_ops(plan.members[0].value) == (0, 3)
+
+
+def _ulps(got, ref, mant_bits):
+    """|got - ref| in units of the last place of a float with `mant_bits`
+    stored mantissa bits, at the larger magnitude of the two (values here
+    are normal numbers)."""
+    g, r = got.astype(np.float64), ref.astype(np.float64)
+    mag = np.maximum(np.abs(g), np.abs(r))
+    ulp = 2.0 ** (np.floor(np.log2(mag)) - mant_bits)
+    return np.abs(g - r) / ulp
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_group_matches_jax(dtype, tmp_path):
+    """A 16-bit float group (with its Let): the plan takes it, the g++ build
+    equals the plain version bit for bit (each operation in f32, rounded to
+    the type, as torch's ops on 16-bit tensors; the host stand-in rounds
+    to nearest even as the card's instructions do). Against the JAX package
+    within one unit in the last place of the type at any point: XLA's CPU
+    computes a fused chain of 16-bit operations in f32 and rounds once where
+    it stores (the member p, the output), where the port rounds after each
+    operation. The inputs make that the only difference: v = a + b is exact
+    (multiples of 1/16 below 4), so of v * v + v only the product is
+    rounded early, by at most half a unit of the product, which is below
+    the sum's; the final rounding then differs by at most one unit. max is
+    exact, and every value is positive (no cancellation)."""
+    import halide_tpu as hl
+    a = _let_input(dtype)
+    pipe = _let_pipeline(ht, dtype, a)
+    before = sum(gk.rejects.values())
+    out = pipe.realize([48, 40], device="cpu")
+    assert sum(gk.rejects.values()) == before, dict(gk.rejects)
+    plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
+    assert gk.ctype(plan.out_type) == {"float16": "hl_f16",
+                                       "bfloat16": "hl_bf16"}[dtype]
+    assert "hl_round16<" in plan.source
+    fn = _host_build(plan, tmp_path)
+    host = torch.zeros((40, 48), dtype=getattr(torch, dtype))
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    assert torch.equal(host.view(torch.int16), out.data.view(torch.int16))
+    got = out.data.float().numpy()
+    ref = np.asarray(_let_pipeline(hl, dtype, a).realize([48, 40])
+                     .to_numpy()).astype(np.float32)
+    assert _ulps(got, ref, 10 if dtype == "float16" else 7).max() <= 1.0
+
+
+def test_half_literals_round_to_the_type():
+    """A float literal in a 16-bit group is the value rounded to the type,
+    as the plain version's constant tensor is."""
+    for dtype, t in (("float16", ht.Float(16)), ("bfloat16", ht.BFloat(16))):
+        lit = gk._float_lit(0.1, t)
+        v = float(torch.tensor(0.1, dtype=getattr(torch, dtype)))
+        assert lit == f"hl_round16<{gk.ctype(t)}>({v.hex()}f)", lit
+
+
+def test_async_ring_buffer_plan_recorded():
+    """tests/test_pallas.py:179 in both packages: async() and ring_buffer()
+    on a member are recorded as requested, beside what K1 did about it
+    (its two-buffer walk prefetches by cp.async)."""
+    import halide_tpu as hl
+    from halide_tpu.ops import pallas_group as pg
+    W, H = 256, 64
+    img = np.random.default_rng(3).integers(0, 1 << 12, (H, W), np.uint16)
+
+    def build(m, asynchronous):
+        x, y = m.Var("x"), m.Var("y")
+        xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+        inp = m.Buffer(torch.from_numpy(img) if m is ht else img)
+        bx, by = m.Func("ar_bx"), m.Func("ar_by")
+        bx[x, y] = (inp[x, y] + inp[x + 1, y] + inp[x + 2, y]) / 3
+        by[x, y] = (bx[x, y] + bx[x, y + 1] + bx[x, y + 2]) / 3
+        by.tile(x, y, xo, yo, xi, yi, 64, 16).vectorize(xi).parallel(yo)
+        bx.compute_at(by, xo)
+        if asynchronous:
+            bx.async_().ring_buffer(2)
+        return by
+    for asynchronous in (True, False):
+        gk.last_plan = None
+        got = build(ht, asynchronous).realize([W - 2, H - 2],
+                                              device="cpu").to_numpy()
+        rec = gk.last_plan
+        pg._last_plan = None
+        ref = np.asarray(build(hl, asynchronous).realize(
+            [W - 2, H - 2], jit=False).to_numpy())
+        assert rec["async_requested"] is pg._last_plan["async_requested"] \
+            is asynchronous
+        assert rec["prefetch"] in ("cp.async", "none")
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["int32", "float32", "float16",
+                                   "bfloat16"])
+def test_let_and_half_kernel_matches_plain_version_on_the_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    a = _let_input(dtype, 700, 1000)
+    pipe = _let_pipeline(ht, dtype, a, (256, 128), "cuda")
+    launches = gk.launches
+    out = pipe.realize([1000, 700])
+    assert gk.launches == launches + 1
+    plan, inputs, rmins, params, _realz = gk.group_call(pipe)
     plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
     torch.cuda.synchronize()
     assert torch.equal(out.data, plain)

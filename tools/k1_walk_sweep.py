@@ -1,13 +1,17 @@
 """Sweeps of the stencil-group kernel (K1) on the card: sub-tile x threads,
 the staging split, and the band walk's length.
 
-    python tools/k1_walk_sweep.py [--out F]  # all three, then the fit
-    python tools/k1_walk_sweep.py --fit F    # only the fit, from a saved F
+    python tools/k1_walk_sweep.py [--out F]  # the first three, then the fit
+    python tools/k1_walk_sweep.py --carry [--out F]   # the carry, its fit
+    python tools/k1_walk_sweep.py --fit F    # only the fits, from a saved F
 
 At the canonical sizes of `chip_smoke.py`, for stencil_chain's first and
 last groups (1536x2560 u16, 32 stencils), camera_pipe (2560x1920, tile
-2560x128), linear_blur (1536x2560x3 f32), local_laplacian (1536x2560x3
-u16), blur (2560x1536 u16) and interpolate (1536x2560x4 f32):
+2560x128), linear_blur (1536x2560x3 f32, blur_x carried along y),
+local_laplacian (1536x2560x3 u16), blur (2560x1536 u16), interpolate
+(1536x2560x4 f32) and stencil_chain's slide=512 branch (its four groups,
+15 members each carried along x; a point that cannot carry them all is
+left out):
 
 - sub-tile x threads: each group planned again at sub-tiles from 32x16 to
   256x64 and 128x128 (`SUB_TILES`), and 128, 256, 512 and 1024 threads a
@@ -24,7 +28,17 @@ u16), blur (2560x1536 u16) and interpolate (1536x2560x4 f32):
   local_laplacian) and stencil_chain's last and camera_pipe's;
 - the walk: the band-walk groups (linear_blur, stencil_chain's last,
   camera_pipe) walking 1, 2 and 4 sub-tile rows a block, with one window
-  buffer and with two, each checked equal to the walk off.
+  buffer and with two, each checked equal to the walk off;
+- the carry (`--carry` runs only this): the groups that carry members,
+  linear_blur (blur_x along y) and stencil_chain's slide=512 branch (four
+  groups, every stage along x), as planned, with no carry (the rule's own
+  plan), carried at every sub-tile of `CARRY_SUBS` x threads that fits,
+  and at the planned sub-tile walking `CARRY_WALKS` sub-tiles a block with
+  one window buffer and with two, each checked equal to the plan with no
+  carry; then the walk whose times, with two window buffers where a group
+  takes them and one elsewhere (the planner's choice), lose least against
+  each group's fastest (the geometric mean of the ratios): the rule
+  `group_kernel._CARRY_WALK`.
 
 Needs one CUDA card; prints the card's name and power limit, ptxas's report
 (registers, spills) of each planned build, one JSON line per group and
@@ -49,6 +63,10 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+CARRY_WALKS = (1, 2, 3, 4, 6, 8, 12, 16)
+CARRY_SUBS = [(16, 32), (16, 64), (16, 128), (32, 16), (32, 32), (32, 64),
+              (32, 128), (64, 8), (64, 16), (64, 32), (64, 64), (128, 8),
+              (128, 16), (128, 32), (256, 8), (256, 16)]
 SUB_TILES = [(32, 16), (64, 16), (128, 16), (256, 16), (32, 32), (64, 32),
              (32, 64), (64, 64), (128, 32), (128, 64), (32, 128), (64, 128),
              (128, 128), (256, 32), (256, 64)]
@@ -99,16 +117,125 @@ def print_fit(groups, saved_rule):
           flush=True)
 
 
+def carry_fit(carry):
+    """-> {walk: (geometric-mean loss, each group's ratio)} for every walk
+    that all the carried groups ran, and the walk that loses least: each
+    group at that walk with two window buffers where it ran them (the
+    planner takes two where they fit), against its fastest walk."""
+    walks = set.intersection(*({int(k.split("x")[0]) for k in g["walks"]}
+                               for g in carry))
+    losses = {}
+    for w in sorted(walks):
+        ratios = {g["group"]: g["walks"].get(f"{w}x2", g["walks"].get(
+            f"{w}x1")) / min(g["walks"].values()) for g in carry}
+        losses[w] = (math.exp(sum(math.log(r) for r in ratios.values())
+                              / len(ratios)), ratios)
+    best = min(losses, key=lambda w: (losses[w][0], w))
+    return {"walk": best, "loss": losses[best][0], "losses": losses}
+
+
+def sweep_carry(cs, gk, time_of):
+    """The groups that carry members, linear_blur's (along y) and
+    stencil_chain slide=512's four (along x): each at the planned point,
+    the rule's plan with no carry, and carried at every sub-tile of
+    `CARRY_SUBS` x threads that fits (walk as planned); then at the
+    planned sub-tile walking `CARRY_WALKS` sub-tiles with one and two
+    window buffers. Every variant is checked equal to the plan with no
+    carry. -> [{"group", "axis", "planned", "planned_ms", "no_carry",
+    "points", "walks": {"<walk>x<n_buf>": ms}}]."""
+    from halide_tpu_torch.apps import linear_blur, stencil_chain
+    from halide_tpu_torch.ops import build
+    work = []
+    for name, make in (
+            ("linear_blur", lambda: linear_blur.build(1536, 2560)),
+            ("stencil_chain_slide512", lambda: stencil_chain.build(
+                1536, 2560, 32, slide=512))):
+        app = make()
+        app.bind(app.make_inputs(0))
+        app.realize()
+        calls = gk.group_calls(app.pipeline)
+        plain = [c[0] for c in gk.group_calls(app.pipeline, replan=lambda p:
+                                              [dict(carry=False)])]
+        for (plan, inputs, rmins, _pa, _r), q in zip(calls, plain):
+            pts = [v for v, *_x in gk.group_calls(
+                app.pipeline, replan=lambda p, f=plan.f: [
+                    dict(sub_tile=st, threads=nt) for st in CARRY_SUBS
+                    for nt in gk._THREADS] if p.f is f else [])
+                if v.sliding == plan.sliding]
+            work.append((f"{name}/{plan.f.name}", plan, q, pts, inputs,
+                         rmins))
+    todo = {v.symbol: v for _n, plan, q, pts, _i, _m in work
+            for v in [plan, q] + pts}
+    print(f"{len(todo)} carried sources to build", flush=True)
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(gk.build, v) for v in todo.values()]:
+            f.result()
+    out = []
+    for label, plan, q, pts, inputs, rmins in work:
+        base = gk.launch(q, inputs, rmins)
+
+        def timed(v, what):
+            if not torch.equal(gk.launch(v, inputs, rmins), base):
+                sys.exit(f"{label}: {what} changes the values")
+            return time_of(v, inputs, rmins)
+        rec = plan.record()
+        g = {"group": label, "axis": rec["axis"],
+             "planned": {k: rec[k] for k in (
+                 "sub_tile", "threads", "walk", "n_buf", "smem_bytes",
+                 "sliding")},
+             "ptxas": build.ptxas.get(plan.symbol, []),
+             "planned_ms": timed(plan, "the planned carry"),
+             "no_carry": {"sub_tile": [q.sx, q.sy], "threads": q.threads,
+                          "smem_bytes": q.record()["smem_bytes"],
+                          "ms": time_of(q, inputs, rmins)},
+             "points": [], "walks": {}}
+        for v in pts:
+            terms = next(c for c in v.candidates
+                         if c["threads"] == v.threads)
+            g["points"].append({
+                "sub_tile": [v.sx, v.sy], "threads": v.threads,
+                "smem_bytes": v.record()["smem_bytes"],
+                "ms": timed(v, f"sub-tile {v.sx}x{v.sy}"),
+                "terms": {k: t for k, t in terms.items()
+                          if k not in ("carried", "dropped")}})
+        for w, n_buf in itertools.product(CARRY_WALKS, (1, 2)):
+            v = copy.copy(plan)
+            v.walk, v.n_buf = w, n_buf
+            try:
+                v.shape()
+            except ValueError:      # two buffers pass 227 KB
+                continue
+            g["walks"][f"{w}x{n_buf}"] = timed(v, f"walk {w}x{n_buf}")
+        out.append(g)
+        fast = min(g["points"], key=lambda t: t["ms"]) if g["points"] \
+            else None
+        print(json.dumps({"carry": label, "planned": [
+            rec["sub_tile"], rec["threads"], g["planned_ms"]],
+            "no_carry": g["no_carry"], "fastest_carried": fast and [
+                fast["sub_tile"], fast["threads"], fast["ms"]],
+            "points": [[t["sub_tile"], t["threads"], round(t["ms"], 4)]
+                       for t in g["points"]],
+            "walks": {k: round(v, 4) for k, v in g["walks"].items()}}),
+            flush=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fit", help="a k1_sweep.json to fit the rule to")
+    ap.add_argument("--carry", action="store_true",
+                    help="only the carried walk's sweep and its fit")
     ap.add_argument("--out", default=str(ROOT / "build" / "k1_sweep.json"),
                     help="where to write the sweep's points")
     args = ap.parse_args()
     from halide_tpu_torch.ops import group_kernel as gk
     rule = (gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC)
     if args.fit:
-        print_fit(json.loads(Path(args.fit).read_text())["groups"], rule)
+        saved = json.loads(Path(args.fit).read_text())
+        if saved.get("groups"):
+            print_fit(saved["groups"], rule)
+        if saved.get("carry"):
+            print(json.dumps({"carry_fit": carry_fit(saved["carry"])}))
         return
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -118,6 +245,23 @@ def main():
                                        stencil_chain)
     from halide_tpu_torch.ops import build
     print(cs.card_line(), flush=True)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def time_of(plan, inputs, rmins):
+        return cs.event_ms(lambda: gk.launch(plan, inputs, rmins), 30,
+                           scratch.zero_, hold=True)
+    if args.carry:
+        carry = sweep_carry(cs, gk, time_of)
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": cs.card_line(), "carry": carry,
+                                   "rule": gk._CARRY_WALK}))
+        fitted = carry_fit(carry)
+        print(json.dumps({"carry_fit": fitted,
+                          "rule_as_built": gk._CARRY_WALK,
+                          "loss_of_the_rule_as_built": fitted["losses"].get(
+                              gk._CARRY_WALK, [None])[0]}), flush=True)
+        return
     # (name, maker, which group calls, sub-tile sweep, split, walk)
     apps = [
         ("stencil_chain", lambda: stencil_chain.build(1536, 2560, 32,
@@ -134,13 +278,9 @@ def main():
          True, (0,), ()),
         ("interpolate", lambda: interpolate.build(1536, 2560), (0,), True,
          (0,), ()),
+        ("stencil_chain_slide512", lambda: stencil_chain.build(
+            1536, 2560, 32, slide=512), (0, 1, 2, 3), True, (), ()),
     ]
-    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-
-    def time_of(plan, inputs, rmins):
-        return cs.event_ms(lambda: gk.launch(plan, inputs, rmins), 30,
-                           scratch.zero_, hold=True)
-
     # plan every point first, then build them all together
     work = []          # (label, planned call, [(kind, key, plan)], walk)
     for name, make, which, sweep, split, walks in apps:
@@ -189,7 +329,9 @@ def main():
         t_plan = time_of(plan, inputs, rmins)
         points = []
         for kind, vkey, q in variants:
-            if kind != "point":
+            # a point that drops a carry the planned sub-tile keeps is not
+            # the schedule's plan
+            if kind != "point" or q.sliding != plan.sliding:
                 continue
             if not torch.equal(gk.launch(q, inputs, rmins), want):
                 sys.exit(f"{label}: sub-tile {vkey} changes the values")
@@ -219,7 +361,7 @@ def main():
             print(json.dumps({"split": label, "ms": ms}), flush=True)
         if walk and plan.band_walk:
             off = copy.copy(plan)
-            off.band_walk = False
+            off.walk, off.n_buf = 1, 1
             base = gk.launch(off, inputs, rmins)
             ms = {"planned": t_plan, "off": time_of(off, inputs, rmins)}
             for w, n_buf in itertools.product((1, 2, 4), (1, 2)):
