@@ -57,7 +57,20 @@ Then it drives the port's main paths through `App.bind` /
   counts, reinterpret, recip of the bits; `intrinsic_group`) at 1536x2560
   for i32, u16 and u32 lanes through K1, exactly equal to its plain version
   and to the untiled pipeline's whole-array values; a u64 pipeline
-  (`u64_pipeline`) against numpy.
+  (`u64_pipeline`) against numpy;
+- last, the `reductions` phase: nl_means (1536x2560x3 f32, patch 7,
+  search 7), whose three 4-D box sums (inline hl.sum stages) are one K1
+  launch on 256x64 tiles, held against its plain version on the first and
+  last band's sub-tile rows and its golden, timed beside its bound and the
+  reference Halide's GPU time, and broken down by device time; then
+  gaussian_blur (1536x2560), conv_layer and depthwise_separable_conv at
+  their defaults, sgemm and hgemm at 2048^3, dgemm at 512^3, sasum at
+  2^22, max_filter (1536x2560x3, radius 26) and fft (256x256), whole-array,
+  each against its golden, with the lowering its updates and inline
+  reductions took, its realize time (beside the reference Halide's GPU
+  time where there is one) and the device times of its convolution and
+  einsum calls timed alone; and an integer argmax over a 5x4 RDom with
+  ties (`argmax_pipeline`) against numpy.
 
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan, and
@@ -173,7 +186,8 @@ def count_ops(plan):
     without the halo the kernel recomputes. The coordinate arithmetic of a
     read's indices is not counted unless the index depends on data; an
     operation is counted by its operands' type (a float comparison is an
-    f32 operation)."""
+    f32 operation); an inline reduction counts its value's operations at
+    every point of its RDom, and one combine a point (`point_ops`)."""
     from halide_tpu_torch.ops import group_kernel as gk
 
     def ops(v):
@@ -210,29 +224,52 @@ def window_bytes(plan, inputs, rmins):
 PORT_KERNELS = ("group_", "scan_segments", "rowhist_blocks")
 
 
+def port_launches():
+    """Launches of the port's kernels so far, all wrappers together."""
+    from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    from halide_tpu_torch.ops import scan_kernel as sk
+    return gk.launches + rk.launches + sum(sk.launches.values())
+
+
 def breakdown(app):
     """Where one realize's time goes: host wall time, the device's busy
     time from the profiler's kernel events, split between the port's
     kernels and the torch ops around them, and the kernels by device
-    time."""
+    time. Fails if the profile holds fewer records of the port's kernels
+    than the realize launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     app.realize()
     torch.cuda.synchronize()
+    n0 = port_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the profiler can lose the first kernel records of a session
+        # (seen on the H100 once a process has profiled the port's kernels
+        # and run many launches; nl_means's group kernel was among them):
+        # eight short spins go first and are left out of the count
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         app.realize()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
+    launched = port_launches() - n0
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
             us, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy = sum(us for us, _n in by_name.values())
-    ours = sum(us for name, (us, _n) in by_name.items()
-               if any(k in name for k in PORT_KERNELS))
+    mine = [(us, n) for name, (us, n) in by_name.items()
+            if any(k in name for k in PORT_KERNELS)]
+    ours = sum(us for us, _n in mine)
+    if sum(n for _us, n in mine) != launched:
+        raise SystemExit(f"{app.name}: the profile holds "
+                         f"{sum(n for _us, n in mine)} records of the port's "
+                         f"kernels, the realize launched {launched}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     say(f"{app.name} realize: wall {wall_us:.1f} us, device busy "
         f"{busy:.1f} us (idle share {1 - busy / wall_us:.3f}): the port's "
@@ -695,6 +732,64 @@ def k3_call(lib, lin, K, scale, plan=None):
     return out
 
 
+def argmax_pipeline(m, a):
+    """An integer argmax over a 5 x 4 RDom of an int32 image `a` (values in
+    a few levels, so that most windows tie): (r.x, r.y, value) of the first
+    maximal point with r.x the most significant, against numpy's argmax of
+    each window flattened so. -> (pipeline, output sizes, golden)."""
+    x, y = m.Var("x"), m.Var("y")
+    inp = m.ImageParam(m.Int(32), 2, "am_in")
+    inp.set(torch.from_numpy(a).cuda())
+    r = m.RDom(0, 5, 0, 4, "am")
+    f = m.Func("argmax_2d")
+    am = m.argmax(inp[x + r.x, y + r.y])
+    f[x, y] = (am[0], am[1], am[2])
+    h, w = a.shape
+    win = np.lib.stride_tricks.sliding_window_view(a, (4, 5))  # [y,x,ry,rx]
+    flat = win.transpose(0, 1, 3, 2).reshape(h - 3, w - 4, 20)
+    i = flat.argmax(axis=2)
+    golden = [(i // 4).astype(np.int32), (i % 4).astype(np.int32),
+              np.take_along_axis(flat, i[..., None], 2)[..., 0]]
+    return m.Pipeline(f), [w - 4, h - 3], golden
+
+
+def reduction_app(app, data, note, ref_ms=None):
+    """An app of inline reductions or contraction updates on the main path:
+    realize on the card (no group kernel: whole-array stages and updates),
+    the output against its golden, the lowering its updates and inline
+    reductions took, and its realize time (CUDA events after a warm-up, L2
+    flushed) beside the reference Halide's GPU time where there is one.
+    The convolution and einsum calls of one realize are kept and timed
+    alone (device time, at full precision as the port runs them). -> the
+    row of times."""
+    from halide_tpu_torch import eval_torch, updates
+    from halide_tpu_torch.ops import group_kernel as gk
+    updates._last_reduce_path.clear()
+    inline0 = dict(eval_torch.reduce_paths)
+    gk.launches = 0
+    gk.rejects.clear()
+    (out, convs), einsums = capture(torch, "einsum", lambda: capture(
+        torch.nn.functional, "conv2d", app.realize))
+    torch.cuda.synchronize()
+    inline = {k: v - inline0.get(k, 0)
+              for k, v in eval_torch.reduce_paths.items()
+              if v != inline0.get(k, 0)}
+    say(f"{note}: realize ok, group kernel launches {gk.launches}, rejects "
+        f"{dict(gk.rejects)}; update lowering {dict(updates._last_reduce_path)}"
+        f", inline reductions {inline}")
+    if gk.launches or gk.rejects:
+        raise SystemExit(f"{app.name}: planned or launched a group")
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    refs = app.reference(**data)
+    refs = refs if isinstance(refs, (list, tuple)) else [refs]
+    for o, r in zip(outs, refs):
+        check_golden(app.name, o.to_numpy(), r, app.tolerance, app.atol,
+                     app.mismatch_frac)
+    return {"app": app.name, "paths": dict(updates._last_reduce_path),
+            "inline": inline, "convs": convs, "einsums": einsums,
+            "reference_gpu_ms": ref_ms}
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
     """One row of the kernel table. `ops` is (f32, integer) operations:
@@ -730,8 +825,10 @@ def main():
     from halide_tpu_torch.apps import (TILED_PRODUCERS, App, blur,
                                        camera_pipe, harris, hist, iir_blur,
                                        interpolate, linear_blur,
-                                       local_laplacian, stencil_chain,
-                                       tile_producers, unsharp, wavelet)
+                                       local_laplacian, nl_means,
+                                       stencil_chain, tile_producers,
+                                       unsharp, wavelet)
+    from halide_tpu_torch.apps import get as app_get
     from halide_tpu_torch.ops import build
     from halide_tpu_torch.ops import group_kernel as gk
     from halide_tpu_torch.ops import rowhist_kernel as rk
@@ -752,6 +849,8 @@ def main():
     app_un = unsharp.build(1536, 2560)
     app_hr = harris.build(1536, 2560)
     app_wv = wavelet.build(1536, 2560)
+    # the box sums' group (tile 256x64, the JAX app's schedule)
+    app_nl = nl_means.build(1536, 2560)
     app_unt = unsharp.build(1536, 2560)
     app_hrt = harris.build(1536, 2560)
     for app in (app_unt, app_hrt):
@@ -775,12 +874,12 @@ def main():
                          [1536, 2560])
     data = {}
     apps = [app_b, app_l, app_p, app_ll, app_s, app_sl, app_c, app_c64,
-            app_un, app_hr, app_wv, app_unt, app_hrt]
+            app_un, app_hr, app_wv, app_unt, app_hrt, app_nl]
     for app in apps:
         data[id(app)] = app.make_inputs(0)
         app.bind(data[id(app)])            # onto the card
     plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
-                         app_c64, app_8, app_unt, app_hrt]
+                         app_c64, app_8, app_unt, app_hrt, app_nl]
                         + list(apps_in.values()) + list(apps_h.values()))
     # the carried groups planned again with no carry, at the same sub-tile
     # and threads and at the rule's own: built with the rest, timed beside
@@ -1314,6 +1413,78 @@ def main():
                 app_8, app_i, app_h, app_un, app_hr, app_wv, app_unt,
                 app_hrt):
         breakdown(app)
+
+    # inline reductions and contractions: nl_means's box sums through K1
+    # (its plain version on the first and last band's sub-tile rows), then
+    # whole-array apps of inline reductions and contraction updates
+    phase("reductions")
+    from halide_tpu_torch import eval_torch
+    res_nl = run_app(app_nl, data[id(app_nl)], "nl_means 1536x2560x3 f32, "
+                     "patch 7, search 7, tile 256x64 (d, blur_d_y, blur_d: "
+                     "inline sums)", 0.0, rtol=1e-6, bands=1)
+    row_nl = k1_row("K1 stencil group (nl_means box sums, inline Reduce)",
+                    "halide_tpu/ops/pallas_group.py:696", app_nl, res_nl)
+    say(f"nl_means: plan {res_nl[0][0][0].record()}")
+    breakdown(app_nl)
+    red_apps = [
+        ("gaussian_blur", dict(width=1536, height=2560), None),
+        ("conv_layer", {}, 1.87),
+        ("depthwise_separable_conv", {}, 0.066),
+        ("sgemm", dict(M=2048, N=2048, K=2048), None),
+        ("hgemm", dict(M=2048, N=2048, K=2048), None),
+        ("dgemm", dict(M=512, N=512, K=512), None),
+        ("sasum", dict(N=1 << 22), None),
+        ("max_filter", dict(width=1536, height=2560, radius=26), 11.8),
+        ("fft", dict(width=256, height=256), None),
+    ]
+    red_rows = []
+    for name_r, kw, ref_ms in red_apps:
+        app = app_get(name_r)(**kw)
+        d = app.make_inputs(0)
+        app.bind(d)
+        row = reduction_app(app, d, f"{name_r} {kw or 'defaults'}", ref_ms)
+        row["realize_ms"] = event_ms(app.realize, 10, flush)
+        with eval_torch.contract_precision():
+            row["conv_ms"] = sum(event_ms(
+                lambda a=a, k=k: torch.nn.functional.conv2d(*a, **k), 20,
+                flush, hold=True) for a, k in row["convs"])
+            row["einsum_ms"] = sum(event_ms(
+                lambda a=a, k=k: torch.einsum(*a, **k), 20, flush,
+                hold=True) for a, k in row["einsums"])
+        row["convs"], row["einsums"] = len(row["convs"]), len(row["einsums"])
+        # a contraction app's useful operations over the library calls'
+        # device time and over the realize
+        lib_ms = row["conv_ms"] + row["einsum_ms"]
+        row["gflop"] = app.flops and app.flops / 1e9
+        row["library_tflops"] = app.flops and app.flops / lib_ms / 1e9
+        row["realize_tflops"] = app.flops and (app.flops / row["realize_ms"]
+                                               / 1e9)
+        red_rows.append(row)
+        say(f"{name_r} on {card}: realize {row['realize_ms']:.4f} ms "
+            f"(reference Halide's GPU: {ref_ms} ms); library calls: "
+            f"{row['convs']} convolutions {row['conv_ms']:.4f} ms, "
+            f"{row['einsums']} einsums {row['einsum_ms']:.4f} ms (device); "
+            f"{row['gflop']} GFLOP: {row['library_tflops']} TFLOP/s over "
+            f"the library calls, {row['realize_tflops']} over the realize")
+    a_am = np.random.default_rng(0).integers(0, 3, (2560, 1536)).astype(
+        np.int32)
+    pipe_am, sizes_am, golden_am = argmax_pipeline(ht, a_am)
+    got_am = [b.to_numpy() for b in pipe_am.realize(sizes_am)]
+    bad_am = [k for k, (g, w) in enumerate(zip(got_am, golden_am))
+              if not np.array_equal(g, w)]
+    say(f"integer argmax over a 5x4 RDom with ties, {sizes_am}, against "
+        f"numpy: outputs that differ {bad_am} (none allowed); ties in "
+        f"{float((a_am == 2).mean())!r} of the points' values")
+    if bad_am:
+        raise SystemExit(f"argmax: outputs {bad_am} disagree with numpy")
+    say("realizes: " + json.dumps(
+        [{k: r[k] for k in ("app", "realize_ms", "reference_gpu_ms",
+                            "paths", "inline", "convs", "conv_ms",
+                            "einsums", "einsum_ms", "gflop",
+                            "library_tflops", "realize_tflops")}
+         for r in red_rows]
+        + [{"app": "nl_means", "realize_ms": row_nl["realize_ms"],
+            "reference_gpu_ms": 22.0}]))
 
     phase("kernels")
     signal.alarm(0)

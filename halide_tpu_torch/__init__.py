@@ -7,9 +7,11 @@ package `halide_tpu` stays beside it as the reference; this package imports
 neither it nor jax.
 
 What is ported: the front end, `Pipeline.realize`, whole-array evaluation
-(eval_torch), the stencil-group kernel (ops/group_kernel), and update
+(eval_torch) with inline reductions and the convolution and einsum
+contraction paths, the stencil-group kernel (ops/group_kernel), update
 definitions (updates) with the scan kernel (ops/scan_kernel) and the
-row-histogram kernel (ops/rowhist_kernel), and the print/error hooks.
+row-histogram kernel (ops/rowhist_kernel), rfactor, and the print/error
+hooks.
 Realize runs on the card unless the caller passes device="cpu".
 """
 import sys as _sys
@@ -32,6 +34,8 @@ from .target import (Target, get_host_target,                       # noqa: E402
                      get_target_from_environment)
 from .iroperator import *                                           # noqa: E402,F401,F403
 from .iroperator import __all__ as _irop_all                        # noqa: E402
+from .inline_reductions import (sum, product, maximum, minimum,     # noqa: E402
+                                argmax, argmin)
 from .boundary import (repeat_edge, constant_exterior, repeat_image,  # noqa: E402
                        mirror_image, mirror_interior)
 from . import boundary as BoundaryConditions                        # noqa: E402
@@ -49,6 +53,7 @@ __all__ = [
     "LoopAlignStrategy",
     "Target", "get_host_target", "get_jit_target_from_environment",
     "get_target_from_environment",
+    "sum", "product", "maximum", "minimum", "argmax", "argmin",
     "repeat_edge", "constant_exterior", "repeat_image", "mirror_image",
     "mirror_interior", "BoundaryConditions",
     "set_custom_print", "set_error_handler",

@@ -20,7 +20,8 @@ APPS: Dict[str, Callable] = {}
 
 _APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
                 "local_laplacian", "stencil_chain", "camera_pipe", "unsharp",
-                "harris", "wavelet"]
+                "harris", "wavelet", "gaussian_blur", "max_filter", "nl_means",
+                "conv_layer", "linear_algebra", "fft"]
 
 
 def register(name: str):
@@ -84,7 +85,7 @@ class App:
     def __init__(self, name, pipeline, inputs, make_inputs, reference,
                  output_sizes, megapixels: Optional[float] = None,
                  tolerance: float = 0.0, atol: Optional[float] = None,
-                 mismatch_frac: float = 0.0):
+                 mismatch_frac: float = 0.0, flops: Optional[float] = None):
         self.name = name
         self.pipeline = pipeline        # halide_tpu_torch.Pipeline
         self.inputs = inputs            # list[ImageParam/Param]
@@ -95,6 +96,9 @@ class App:
         self.tolerance = tolerance      # rtol; 0 => bit-exact
         self.atol = atol if atol is not None else tolerance
         self.mismatch_frac = mismatch_frac
+        # useful operations a frame (a multiply-add is 2) of a contraction
+        # app, for the rate `chip_smoke.py` prints
+        self.flops = flops
 
     def bind(self, data: dict, device=None):
         """Bind the numpy dict of make_inputs(seed) (or tensors) to the

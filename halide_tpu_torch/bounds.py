@@ -231,16 +231,21 @@ class BoundsEngine:
                 ex = self._bounds(rv.rextent, scope)
                 return Interval(mn.lo, mn.hi + ex.hi - 1)
             # value bounds of sum/... are data-dependent
-            inner = dict(scope)
-            for rv in e.rdom.dims:
-                mn = self._bounds(rv.rmin, scope)
-                ex = self._bounds(rv.rextent, scope)
-                inner[rv.name] = Interval(mn.lo, mn.hi + ex.hi - 1)
-            vb = self._bounds(e.value, inner)
+            vb = self._bounds(e.value, self.rdom_scope(e.rdom, scope))
             if e.op in ("minimum", "maximum"):
                 return vb
             return self._type_range(e)
         return self._type_range(e)
+
+    def rdom_scope(self, rdom, scope: Dict[str, Interval]
+                   ) -> Dict[str, Interval]:
+        """`scope` with each of the RDom's RVars over its whole range."""
+        inner = dict(scope)
+        for rv in rdom.dims:
+            mn = self._bounds(rv.rmin, scope)
+            ex = self._bounds(rv.rextent, scope)
+            inner[rv.name] = Interval(mn.lo, mn.hi + ex.hi - 1)
+        return inner
 
     def _type_range(self, e: Expr) -> Interval:
         t = e.dtype

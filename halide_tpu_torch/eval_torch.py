@@ -28,11 +28,20 @@ a - b*floor(a/b).
 wait for the card, in the pipelines that use them only) and go through the
 port's `hooks`; `random` draws JAX's threefry2x32 bits, computed in torch.
 
-Not ported yet: inline reductions (slice 2); they raise NotImplementedError.
+Inline reductions (`_eval_reduce`) reduce over RDom axes added to the grid;
+a sum of a product of two Func reads shaped as a convolution goes to
+torch's convolution, any other sum of a product over a large grid to
+torch.einsum (integers: a chunked multiply and sum), both as the JAX
+package's contraction paths (`try_conv_reduce`, `try_einsum_reduce`), f32
+at full precision (`contract_precision`).
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -115,12 +124,15 @@ class Realized:
 
 
 class Ctx:
+    """An evaluation context. `fold`: inline reductions fold point by point
+    in RDom order, r.x innermost, with no contraction path (K1's plain
+    version, which must sum in the kernel's order)."""
     __slots__ = ("ndim", "axes", "bindings", "realizations", "params",
-                 "device", "memo")
+                 "device", "memo", "fold")
 
     def __init__(self, ndim: int, axes: Dict[str, Axis], bindings: dict,
                  realizations: Dict[int, Realized], params: dict,
-                 device="cpu"):
+                 device="cpu", fold: bool = False):
         self.ndim = ndim
         self.axes = axes
         self.bindings = bindings
@@ -128,10 +140,11 @@ class Ctx:
         self.params = params
         self.device = torch.device(device)
         self.memo: dict = {}
+        self.fold = fold
 
     def with_bindings(self, bindings: dict) -> "Ctx":
         return Ctx(self.ndim, self.axes, bindings, self.realizations,
-                   self.params, self.device)
+                   self.params, self.device, self.fold)
 
     def extended(self, new_axes: List[Axis]) -> "Ctx":
         """This context with `new_axes` (an update's rdom axes) added, so
@@ -141,7 +154,7 @@ class Ctx:
             axes[a.name] = a
         ndim = max([self.ndim] + [a.rpos + 1 for a in new_axes])
         return Ctx(ndim, axes, self.bindings, self.realizations, self.params,
-                   self.device)
+                   self.device, self.fold)
 
 
 def _shape_at(ctx_ndim: int, rpos: int, extent: int) -> Tuple[int, ...]:
@@ -386,8 +399,7 @@ def _eval(e: Expr, ctx: Ctx):
         child = ctx.with_bindings({**ctx.bindings, e.name: v})
         return evaluate(e.body, child)
     if isinstance(e, E.Reduce):
-        raise NotImplementedError(
-            "inline reductions come in slice 2 of the port")
+        return _eval_reduce(e, ctx)
     if isinstance(e, E.StringImm):
         return e.value
     raise CompileError(f"cannot evaluate {type(e).__name__}")
@@ -711,8 +723,10 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
     if n in _MATH1:
         return _MATH1[n](eval_array(e.args[0], ctx))
     if n == "pow":
-        return torch.pow(eval_array(e.args[0], ctx),
-                         eval_array(e.args[1], ctx))
+        a = eval_array(e.args[0], ctx)
+        if pow_is_square(e):
+            return a * a
+        return torch.pow(a, eval_array(e.args[1], ctx))
     if n == "atan2":
         return torch.atan2(eval_array(e.args[0], ctx),
                            eval_array(e.args[1], ctx))
@@ -795,6 +809,15 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
 # ---------------------------------------------------------------------------
 # bit counts, integer operations only (torch has no clz or popcount)
 # ---------------------------------------------------------------------------
+
+def pow_is_square(e: E.Intrin) -> bool:
+    """pow(x, 2.0), an exponent that is the constant 2: computed as x * x,
+    as XLA's simplifier computes it (the JAX package realizes under jit)
+    and torch's pow with a Python scalar 2; the group kernel does the
+    same."""
+    b = e.args[1]
+    return isinstance(b, E.FloatImm) and b.value == 2.0
+
 
 def _unsigned_bits(v: torch.Tensor, t: Type) -> torch.Tensor:
     """The bits of an integer value of Type t in int64: t's bits, zero-
@@ -977,3 +1000,488 @@ def static_int(e: Expr, ctx: Ctx) -> int:
     if isinstance(v, _INDEX_FORMS):
         raise CompileError(f"expected static value, got {v!r}")
     return int(v)
+
+
+# ---------------------------------------------------------------------------
+# inline reductions and the contraction paths
+# ---------------------------------------------------------------------------
+
+# how each inline reduction was evaluated (the chip check prints it):
+# "conv", "einsum", "reduce" (torch's reductions), "fold" (K1's plain
+# version, point by point)
+reduce_paths: collections.Counter = collections.Counter()
+
+# the einsum path needs a grid (output and RDom) of at least this many
+# elements, as the JAX package's _EINSUM_MIN_FULL
+_EINSUM_MIN_FULL = 1 << 22
+_LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+# elements of one chunk's product grid in an integer contraction
+_INT_CHUNK = 1 << 24
+
+_reduce_instance = [0]
+
+
+def reduce_identity(op: str, t: Type):
+    """The value a reduction of values of Type t starts from (the JAX
+    package's `_reduce_identity`); argmax and argmin start from t's min and
+    max."""
+    if op == "sum":
+        return 0
+    if op == "product":
+        return 1
+    if op in ("maximum", "argmax"):
+        return t.min_value()
+    if op in ("minimum", "argmin"):
+        return t.max_value()
+    raise CompileError(f"unknown reduction {op}")
+
+
+@contextlib.contextmanager
+def contract_precision():
+    """The JAX package's `_contract_precision` (HT_PRECISION=default|
+    highest) on the card: f32 contractions at full precision, with TF32
+    off in cuBLAS and cuDNN (cuDNN's convolutions take TF32 by default)
+    and bf16 reductions at full precision, unless HT_PRECISION=default.
+    The flags are set around the port's own contractions only and
+    restored after: the process's settings stay the caller's."""
+    if os.environ.get("HT_PRECISION", "").lower() == "default":
+        yield
+        return
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (mm.allow_tf32, dnn.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = dnn.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (mm.allow_tf32, dnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
+
+
+def _fit_ctx_shape(shape, ctx_ndim: int):
+    if ctx_ndim == 0:
+        return ()
+    shape = list(shape)
+    if len(shape) >= ctx_ndim:
+        return tuple(shape[-ctx_ndim:])
+    return tuple([1] * (ctx_ndim - len(shape)) + shape)
+
+
+def _eval_reduce(e: E.Reduce, ctx: Ctx):
+    """An inline reduction over its RDom (the JAX package's `_eval_reduce`).
+    The RDom's axes get names unique to this evaluation and its RVars are
+    bound to them, so one RDom reused in nested reductions cannot collide.
+    An empty RDom gives the identity; predicates and `where` replace the
+    points they exclude by the identity."""
+    rd = e.rdom
+    _reduce_instance[0] += 1
+    tag = _reduce_instance[0]
+    new_axes, binds = [], dict(ctx.bindings)
+    for i, rv in enumerate(rd.dims):
+        fresh = f"{rv.name}#{tag}"
+        new_axes.append(Axis(fresh, ctx.ndim + i, static_int(rv.rmin, ctx),
+                             static_int(rv.rextent, ctx)))
+        binds[rv.name] = AVal({fresh: 1}, 0)
+    vt = e.value.dtype
+    if any(a.extent <= 0 for a in new_axes):
+        if e.op in ("argmin", "argmax"):
+            raise CompileError(f"{e.op} over an empty RDom")
+        return _const(reduce_identity(e.op, vt), vt, ctx)
+    inner = ctx.extended(new_axes)
+    inner.bindings = binds
+    red = tuple(inner.ndim - 1 - a.rpos for a in new_axes)
+    preds = list(rd.predicates) + ([e.where] if e.where is not None else [])
+    if e.op == "sum" and not preds and not ctx.fold:
+        try:
+            r, path = try_conv_reduce(e.value, inner,
+                                      [a.name for a in new_axes]), "conv"
+        except CompileError:
+            r = None
+        if r is None:
+            r, path = try_einsum_reduce(e.value, inner, red), "einsum"
+        if r is not None:
+            reduce_paths[path] += 1
+            return r.reshape(_fit_ctx_shape(r.shape, ctx.ndim))
+    val = eval_array(e.value, inner)
+    val = val.expand(torch.broadcast_shapes(val.shape,
+                                            full_shape(inner, new_axes)))
+    mask = None
+    for p in preds:
+        pm = eval_array(p, inner)
+        mask = pm if mask is None else torch.logical_and(mask, pm)
+    if mask is not None:
+        val = torch.where(mask, val,
+                          _const(reduce_identity(e.op, vt), vt, inner))
+    if e.op in ("argmin", "argmax"):
+        out = _arg_reduce(e, val, new_axes, red)
+    elif ctx.fold:
+        reduce_paths["fold"] += 1
+        out = _fold_reduce(e.op, vt, val, new_axes, inner)
+    else:
+        reduce_paths["reduce"] += 1
+        out = _torch_reduce(e.op, vt, val, red)
+    return out.reshape(_fit_ctx_shape(out.shape, ctx.ndim))
+
+
+_COMBINE = {"sum": "add", "product": "mul", "maximum": "max",
+            "minimum": "min"}
+
+
+def _torch_reduce(op: str, t: Type, val: torch.Tensor, red) -> torch.Tensor:
+    """sum, product, maximum or minimum over the axes `red` (kept), in the
+    Type t: torch sums and multiplies integers in int64, which the cast
+    back wraps as the Type's own arithmetic would; u64 (in int64) is
+    ordered as unsigned."""
+    if op in ("sum", "product"):
+        if op == "sum":
+            r = torch.sum(val, dim=red, keepdim=True)
+        else:
+            r = val
+            for a in red:
+                r = torch.prod(r, dim=a, keepdim=True)
+        return r if val.is_floating_point() else \
+            cast_value(r, Int(64), t)
+    fn = torch.amax if op == "maximum" else torch.amin
+    if _is_u64(t):
+        return _uflip(fn(_uflip(val), dim=red, keepdim=True))
+    return fn(val, dim=red, keepdim=True)
+
+
+def _fold_reduce(op: str, t: Type, val: torch.Tensor, axes: List[Axis],
+                 ctx: Ctx) -> torch.Tensor:
+    """The reduction folded point by point from the identity, r.x
+    innermost (K1's loop order), each step the Type's own operation."""
+    acc = _const(reduce_identity(op, t), t, ctx)
+    for combo in itertools.product(*[range(a.extent)
+                                     for a in reversed(axes)]):
+        idx = [slice(None)] * val.dim()
+        for a, k in zip(reversed(axes), combo):
+            idx[ctx.ndim - 1 - a.rpos] = slice(k, k + 1)
+        acc = _apply_binop(_COMBINE[op], t, acc, val[tuple(idx)])
+    return acc
+
+
+def _arg_reduce(e: E.Reduce, val: torch.Tensor, axes: List[Axis],
+                red) -> torch.Tensor:
+    """argmin/argmax: the RDom's points flattened with RDom dim 0 the most
+    significant, the first extreme point in that order (the lowest r.x,
+    then the lowest r.y, ...; a NaN is extreme, the first NaN wins, as
+    jnp.argmax and torch.argmax); value_index k < len(axes) is that
+    point's coordinate along dim k, k == len(axes) its value."""
+    n, vt = len(axes), e.value.dtype
+    big = _uflip(val) if _is_u64(vt) else val
+    if big.dtype == torch.bool:
+        big = big.to(torch.uint8)
+    moved = big.movedim(red, tuple(range(n)))
+    flat = moved.reshape((-1,) + tuple(moved.shape[n:]))
+    best = (torch.argmax if e.op == "argmax" else torch.argmin)(flat, dim=0)
+    k = e.value_index
+    if k == n:
+        out = flat.gather(0, best.unsqueeze(0)).squeeze(0)
+        out = _uflip(out) if _is_u64(vt) else out
+        return out.to(val.dtype)
+    stride = math.prod(a.extent for a in axes[k + 1:])
+    return ((best // stride) % axes[k].extent + axes[k].min).to(torch.int32)
+
+
+def _factors(e: Expr) -> List[Expr]:
+    """The factors of a product (nested muls)."""
+    out: List[Expr] = []
+
+    def peel(x):
+        if isinstance(x, E.Binary) and x.op == "mul":
+            peel(x.a)
+            peel(x.b)
+        else:
+            out.append(x)
+    peel(e)
+    return out
+
+
+def _peel_call(e: Expr) -> Optional[E.Call]:
+    """The Call under casts that change no value: to f32 from a 16-bit
+    float or an integer of at most 16 bits (the conv path reads the Func's
+    array and converts it to f32). The JAX package's `_peel_call` looks
+    through any cast, so that its conv path skips a narrowing one (a
+    bf16 cast of f32 data is not rounded there); the port takes such a
+    product elsewhere, with the cast."""
+    while isinstance(e, E.Cast):
+        src, dst = e.value.dtype, e.dtype
+        if not (dst.is_float() and dst.bits == 32 and src.bits <= 16
+                and not src.is_bool()):
+            return None
+        e = e.value
+    return e if isinstance(e, E.Call) else None
+
+
+def try_conv_reduce(e: Expr, ctx: Ctx, red_axes_names):
+    """sum over the RDom of W(...) * X(...), X read at strided and shifted
+    spatial dims (pure var * s + RVar), one RVar its input feature, W read
+    at the output feature and the same RVars -> one torch convolution
+    (conv1d/2d/3d, VALID, the strides s), in f32 at full precision, cast
+    back to the value's type (the JAX package's `try_conv_reduce` and its
+    conv_general_dilated). Returns the reduction shaped like the grid with
+    the RDom axes absent or of size 1, or None."""
+    factors = _factors(e)
+    if len(factors) != 2:
+        return None
+    if not e.dtype.is_float() or e.dtype.bits > 32:
+        return None
+    red_set = set(red_axes_names)
+    infos = []
+    for fct in factors:
+        call = _peel_call(fct)
+        if call is None:
+            return None
+        real = ctx.realizations.get(id(call.target))
+        if real is None:
+            return None
+        dims = []
+        for a in call.args:
+            v = evaluate(a, ctx)
+            if not isinstance(v, AVal):
+                return None
+            dims.append((v, list(v.coeffs)))
+        infos.append((call, real, dims))
+
+    def split(vars_):
+        return ([n for n in vars_ if n not in red_set],
+                [n for n in vars_ if n in red_set])
+
+    def spatialness(info):
+        return sum(1 for _v, vars_ in info[2]
+                   if tuple(map(len, split(vars_))) == (1, 1))
+
+    infos.sort(key=spatialness)
+    w_info, x_info = infos
+    if spatialness(x_info) == 0 or spatialness(w_info) != 0:
+        return None
+    xcall, xreal, xdims = x_info
+    wcall, wreal, wdims = w_info
+
+    spatial = []        # (x dim, pure var, stride, rvar, const)
+    x_feature = None    # (x dim, rvar, const)
+    x_batch = []        # (x dim, pure var)
+    x_const = []        # (x dim, const)
+    for j, (v, vars_) in enumerate(xdims):
+        ps, rs = split(vars_)
+        if len(ps) == 1 and len(rs) == 1:
+            s = v.coeffs[ps[0]]
+            if v.coeffs[rs[0]] != 1 or s < 1:
+                return None
+            spatial.append((j, ps[0], s, rs[0], v.const))
+        elif len(ps) == 1 and not rs:
+            if v.coeffs[ps[0]] != 1:
+                return None
+            x_batch.append((j, ps[0]))
+        elif len(rs) == 1 and not ps:
+            if v.coeffs[rs[0]] != 1 or x_feature is not None:
+                return None
+            x_feature = (j, rs[0], v.const)
+        elif not ps and not rs:
+            x_const.append((j, v.const))
+        else:
+            return None
+    if x_feature is None or not spatial or len(spatial) > 3:
+        return None
+    spatial_rvars = {s[3] for s in spatial}
+    if x_feature[1] in spatial_rvars:
+        return None
+
+    w_out = None        # (w dim, pure var)
+    w_feature = None    # (w dim, const)
+    w_spatial = {}      # rvar -> (w dim, const)
+    w_const = []
+    for j, (v, vars_) in enumerate(wdims):
+        ps, rs = split(vars_)
+        if len(ps) == 1 and not rs:
+            if w_out is not None or v.coeffs[ps[0]] != 1:
+                return None
+            w_out = (j, ps[0])
+        elif len(rs) == 1 and not ps:
+            rv = rs[0]
+            if v.coeffs[rv] != 1:
+                return None
+            if rv == x_feature[1]:
+                if w_feature is not None:
+                    return None
+                w_feature = (j, v.const)
+            elif rv in spatial_rvars:
+                w_spatial[rv] = (j, v.const)
+            else:
+                return None
+        elif not ps and not rs:
+            w_const.append((j, v.const))
+        else:
+            return None
+    if w_out is None or w_feature is None:
+        return None
+    if set(w_spatial) != spatial_rvars:
+        return None
+    if red_set - spatial_rvars - {x_feature[1]}:
+        return None     # every RDom axis is a feature or a spatial one
+
+    # X: the box each dim reads, in array coordinates
+    X = xreal.arrays[xcall.value_index]
+    ndx = X.dim()
+    box = [(0, n) for n in X.shape]
+    for (j, pv, s, rv, c0) in spatial:
+        ax, rax = ctx.axes[pv], ctx.axes[rv]
+        lo = c0 + s * ax.min + rax.min - xreal.mins[j]
+        ln = s * (ax.extent - 1) + rax.extent
+        if lo < 0 or lo + ln > X.shape[ndx - 1 - j]:
+            return None
+        box[ndx - 1 - j] = (lo, ln)
+    j, rv, c0 = x_feature
+    rax = ctx.axes[rv]
+    lo = c0 + rax.min - xreal.mins[j]
+    if lo < 0 or lo + rax.extent > X.shape[ndx - 1 - j]:
+        return None
+    box[ndx - 1 - j] = (lo, rax.extent)
+    for (j, pv) in x_batch:
+        ax = ctx.axes[pv]
+        lo = ax.min - xreal.mins[j]
+        if lo < 0:
+            return None
+        box[ndx - 1 - j] = (lo, ax.extent)
+    for (j, c0) in x_const:
+        box[ndx - 1 - j] = (c0 - xreal.mins[j], 1)
+    lhs = X
+    for a, (lo, ln) in enumerate(box):
+        lhs = lhs.narrow(a, lo, ln)
+    if x_const:
+        lhs = lhs.squeeze([ndx - 1 - j for j, _ in x_const])
+
+    def np_pos(j, nd, consts):
+        p = nd - 1 - j
+        return p - sum(1 for jc, _ in consts if nd - 1 - jc < p)
+
+    # lhs as [batch, spatial..., feature], the batch dims collapsed
+    keep = [j for j, _ in x_batch] + [s[0] for s in spatial] + [x_feature[0]]
+    lhs = lhs.permute([np_pos(j, ndx, x_const) for j in keep])
+    nb = len(x_batch)
+    bshape = lhs.shape[:nb]
+    lhs = lhs.reshape((-1,) + tuple(lhs.shape[nb:]))
+
+    # W as [spatial..., in feature, out feature]
+    Wt = wreal.arrays[wcall.value_index]
+    ndw = Wt.dim()
+    wbox = [(0, n) for n in Wt.shape]
+    for rv, (j, c0) in w_spatial.items():
+        rax = ctx.axes[rv]
+        lo = c0 + rax.min - wreal.mins[j]
+        if lo < 0 or lo + rax.extent > Wt.shape[ndw - 1 - j]:
+            return None
+        wbox[ndw - 1 - j] = (lo, rax.extent)
+    j, c0 = w_feature
+    rax = ctx.axes[x_feature[1]]
+    lo = c0 + rax.min - wreal.mins[j]
+    if lo < 0 or lo + rax.extent > Wt.shape[ndw - 1 - j]:
+        return None
+    wbox[ndw - 1 - j] = (lo, rax.extent)
+    jo, co_var = w_out
+    axo = ctx.axes[co_var]
+    lo = axo.min - wreal.mins[jo]
+    if lo < 0:
+        return None
+    wbox[ndw - 1 - jo] = (lo, axo.extent)
+    for (j, c0) in w_const:
+        wbox[ndw - 1 - j] = (c0 - wreal.mins[j], 1)
+    rhs = Wt
+    for a, (lo, ln) in enumerate(wbox):
+        rhs = rhs.narrow(a, lo, ln)
+    if w_const:
+        rhs = rhs.squeeze([ndw - 1 - j for j, _ in w_const])
+    rhs = rhs.permute([np_pos(w_spatial[s[3]][0], ndw, w_const)
+                       for s in spatial]
+                      + [np_pos(w_feature[0], ndw, w_const),
+                         np_pos(jo, ndw, w_const)])
+
+    # torch's layouts: input [N, C, S...], weight [O, I, S...]
+    nsp = len(spatial)
+    conv = (torch.nn.functional.conv1d, torch.nn.functional.conv2d,
+            torch.nn.functional.conv3d)[nsp - 1]
+    with contract_precision():
+        out = conv(lhs.movedim(-1, 1).float(),
+                   rhs.permute([nsp + 1, nsp] + list(range(nsp))).float(),
+                   stride=tuple(s[2] for s in spatial))
+    out = out.movedim(1, -1)                      # [N, S..., O]
+    out = out.reshape(tuple(bshape) + tuple(out.shape[1:]))
+    out_axes_order = [pv for _, pv in x_batch] + [s[1] for s in spatial] \
+        + [co_var]
+    perm_dst = [ctx.ndim - 1 - ctx.axes[nm].rpos for nm in out_axes_order]
+    out = out.permute([i for _, i in sorted(zip(perm_dst,
+                                                range(len(perm_dst))))])
+    shape = [1] * ctx.ndim
+    for nm in out_axes_order:
+        shape[ctx.ndim - 1 - ctx.axes[nm].rpos] = ctx.axes[nm].extent
+    return out.reshape(shape).to(compute_dtype(e.dtype))
+
+
+def try_einsum_reduce(e: Expr, ctx: Ctx, red_np_axes):
+    """sum over the RDom of a product of factors -> one contraction,
+    never the outer-product grid (the JAX package's `try_einsum_reduce`),
+    where the grid has at least `_EINSUM_MIN_FULL` elements. Floats:
+    torch.einsum in f32 (16-bit floats upcast first: their products are
+    exact there, as the JAX package's f32-accumulating contraction) or f64,
+    at full precision, cast to the value's type. Integers: a chunked
+    multiply and sum in int64 (`_int_contract`), which wraps to the Type as
+    the JAX package's int32/int64 accumulation does. Returns the
+    reduction shaped like the grid with size-1 RDom axes, or None."""
+    factors = _factors(e)
+    if len(factors) < 2:
+        return None
+    full = full_shape(ctx, list(ctx.axes.values()))
+    if math.prod(full) < _EINSUM_MIN_FULL:
+        return None
+    ops, positions = [], []
+    for fct in factors:
+        arr = eval_array(fct, ctx)
+        pad = ctx.ndim - arr.dim()
+        pos = [pad + a for a in range(arr.dim()) if arr.shape[a] != 1]
+        ops.append(arr.reshape([arr.shape[a] for a in range(arr.dim())
+                                if arr.shape[a] != 1]))
+        positions.append(pos)
+    outpos = sorted({p for ps in positions for p in ps} - set(red_np_axes))
+    shape = [1] * ctx.ndim
+    if not e.dtype.is_float():
+        r = _int_contract(ops, positions, red_np_axes, ctx.ndim)
+        return cast_value(r, Int(64), e.dtype)
+    acc = torch.float32 if e.dtype.bits <= 32 else torch.float64
+    spec = ",".join("".join(_LETTERS[p] for p in pos)
+                    for pos in positions) \
+        + "->" + "".join(_LETTERS[p] for p in outpos)
+    with contract_precision():
+        r = torch.einsum(spec, *[a.to(acc) for a in ops])
+    for p, s in zip(outpos, r.shape):
+        shape[p] = s
+    return r.reshape(shape).to(compute_dtype(e.dtype))
+
+
+def _int_contract(ops, positions, red, nd: int) -> torch.Tensor:
+    """sum over the axes `red` of the product of integer factors (each
+    over the axes `positions`), in int64: the card's matrix products take
+    no integers. Chunked along the largest reduced axis, so that no chunk's
+    product grid passes `_INT_CHUNK` elements. Shaped like the grid (nd
+    axes), the reduced ones of size 1."""
+    full = [1] * nd
+    shaped = []
+    for arr, pos in zip(ops, positions):
+        shp = [1] * nd
+        for p, s in zip(pos, arr.shape):
+            shp[p] = full[p] = s
+        shaped.append(arr.to(torch.int64).reshape(shp))
+    red = sorted(red)
+    k = max(red, key=lambda a: full[a])
+    step = max(1, _INT_CHUNK // max(1, math.prod(full) // full[k]))
+    acc = None
+    for lo in range(0, full[k], step):
+        n = min(step, full[k] - lo)
+        part = None
+        for a in shaped:
+            a = a.narrow(k, lo, n) if a.shape[k] != 1 else a
+            part = a if part is None else part * a
+        part = part.sum(dim=red, keepdim=True)
+        acc = part if acc is None else acc + part
+    return acc

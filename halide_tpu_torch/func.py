@@ -300,8 +300,14 @@ class Stage:
         return self
 
     def rfactor(self, *args):
-        raise NotImplementedError("rfactor comes with reductions in slice 2 "
-                                  "of the port")
+        from .rfactor import rfactor_impl
+        if len(args) == 1 and isinstance(args[0], (list, tuple)):
+            pairs = args[0]
+        elif len(args) == 2:
+            pairs = [(args[0], args[1])]
+        else:
+            raise CompileError("rfactor(rvar, var) or rfactor([(rvar, var)...])")
+        return rfactor_impl(self.func, self.index, pairs)
 
     def compute_with(self, other, var, align=None) -> "Stage":
         """Fuse this stage's loop nest with a sibling's from `var` outward

@@ -259,6 +259,20 @@ HL_FN T hl_max(T a, T b) {
   return a > b ? a : b;
 }
 
+// argmax (MAX) / argmin: does a point of value v replace the best so far?
+// Where it is more extreme, or a NaN where the best is not; on a tie (or
+// both NaN) where it comes first in the RDom's order (`first`): the first
+// extreme point of the flattened RDom, as torch.argmax and jnp.argmax.
+template <bool MAX, typename T>
+HL_FN bool hl_arg_better(T v, T best, bool first) {
+  if constexpr (std::is_floating_point<T>::value) {
+    const bool vn = v != v, bn = best != best;
+    if (vn || bn) return vn && (!bn || first);
+  }
+  if (v == best) return first;
+  return MAX ? v > best : v < best;
+}
+
 // Shifts by a count outside [0, bits) give 0 (or the sign for a right
 // shift of a negative value), as XLA's shifts do.
 template <typename T>

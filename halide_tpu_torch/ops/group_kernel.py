@@ -116,8 +116,15 @@ computed in f32 and rounded back to the type, as the plain version's torch
 ops do; their operations count at the f32 rate). print, print_when, require
 and random make the plan reject the group, which then runs whole-array: the
 first three read their values back to the host, and random draws over the
-whole evaluated shape, which a sub-tile is not. An inline Reduce is
-rejected too (eval_torch does not evaluate it yet).
+whole evaluated shape, which a sub-tile is not.
+
+An inline Reduce (sum, product, maximum, minimum, argmax, argmin; the
+JAX kernel evaluates it through eval_jnp._eval_reduce, its footprint pass
+widening the scope by the RDom, `pallas_group.py:302-311`) is a loop over
+its RDom, r.x innermost, whose bounds are constants, with an accumulator in
+the value's type that starts at the identity (`_PointEmitter._reduce`).
+The plain version folds in the same order (eval_torch's `fold`), so the
+two agree bit for bit.
 
 The plan records the schedule's async()/ring_buffer() request
 (`async_requested`, as the JAX planner does) beside what it did about it
@@ -137,7 +144,7 @@ from .. import expr as E
 from ..expr import CompileError
 from ..bounds import BoundsEngine, Box, Interval
 from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
-                          full_shape)
+                          full_shape, pow_is_square, reduce_identity)
 from ..func import Func
 from ..htypes import Type, torch_dtype
 from ..schedule import ForType
@@ -272,7 +279,13 @@ class _Footprints:
             self.visit(e.body, child)
             return
         if isinstance(e, E.Reduce):
-            raise GroupUnsupported("Reduce in a group")
+            # (pallas_group.py:302-311) the value, `where` and the RDom's
+            # predicates see each RVar over its whole range
+            child = self.engine.rdom_scope(e.rdom, scope)
+            for c in [e.value, e.where] + list(e.rdom.predicates):
+                if c is not None:
+                    self.visit(c, child)
+            return
         for c in e.children():
             self.visit(c, scope)
 
@@ -951,6 +964,17 @@ def point_ops(value) -> Tuple[int, int]:
                 if reads_data(a):
                     visit(a)
             return
+        if isinstance(e, E.Reduce):
+            # the value's operations (and the predicates') at every point
+            # of the RDom, and one combine a point in the value's type
+            pts = math.prod(rdom_extent(rv) for rv in e.rdom.dims)
+            for c in [e.value, e.where] + list(e.rdom.predicates):
+                if c is not None:
+                    f32, i = point_ops(c)
+                    n[0] += f32 * pts
+                    n[1] += i * pts
+            n[0 if e.value.dtype.is_float() else 1] += pts
+            return
         t, k = None, 1
         if isinstance(e, E.Binary):
             t = e.a.dtype
@@ -968,6 +992,16 @@ def point_ops(value) -> Tuple[int, int]:
             visit(c)
     visit(value)
     return n[0], n[1]
+
+
+def rdom_extent(rv) -> int:
+    """The extent of an RVar in a group: a constant (the kernel's loop
+    bounds are compiled in)."""
+    if not isinstance(rv.rextent, E.IntImm) or \
+            not isinstance(rv.rmin, E.IntImm):
+        raise GroupUnsupported(f"RDom {rv.name} in a group: its bounds are "
+                               "not constants")
+    return max(0, rv.rextent.value)
 
 
 def _weighted(ops: Tuple[int, int]) -> int:
@@ -1244,7 +1278,7 @@ def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
             axes = {v.name: Axis(v.name, i, lo, ext)
                     for i, (v, (lo, ext)) in enumerate(
                         zip(fn._defs[0].args, lohi))}
-            ctx = Ctx(len(lohi), axes, {}, realz, params, dev)
+            ctx = Ctx(len(lohi), axes, {}, realz, params, dev, fold=True)
             val = eval_array(value, ctx)
             return val.expand(full_shape(ctx, list(axes.values()))) \
                 .to(torch_dtype(t))
@@ -1383,7 +1417,85 @@ class _PointEmitter:
                                      f"{self.val(e.value)})")
         if isinstance(e, E.Let):
             return self._let(e)
+        if isinstance(e, E.Reduce):
+            return self._reduce(e)
         raise GroupUnsupported(f"{type(e).__name__} in a kernel")
+
+    def _combine(self, op: str, t: Type, a: str, b: str) -> str:
+        """a op b in Type t, a 16-bit float computed in f32 and rounded."""
+        if _is_half(t):
+            return (f"hl_round16<{ctype(t)}>(hl_{op}<float>(hl_f32({a}), "
+                    f"hl_f32({b})))")
+        return f"hl_{op}<{ctype(t)}>({a}, {b})"
+
+    def _reduce(self, e: E.Reduce) -> str:
+        """A loop over the RDom, r.x innermost, its bounds constants. The
+        accumulator, in the value's type, starts at the identity (an empty
+        RDom leaves it there) and combines each point whose predicates and
+        `where` hold. argmax/argmin keep the best value and its
+        coordinates; a point where the predicates fail takes the identity
+        (as the plain version's), and a point replaces the best where it is
+        more extreme or a NaN, or, on a tie, where it comes first with RDom
+        dim 0 the most significant (`hl_arg_better`): eval_torch's order.
+        An argmax or argmin over an empty RDom raises, as eval_torch's."""
+        dims = e.rdom.dims
+        n = len(dims)
+        vt = e.value.dtype
+        ct = ctype(vt)
+        k = len(self.lines)
+        arg = e.op in ("argmax", "argmin")
+        if arg and not all(rdom_extent(d) for d in dims):
+            raise CompileError(f"{e.op} over an empty RDom")
+        ident = reduce_identity(e.op, vt)
+        ident = (_float_lit(float(ident), vt) if vt.is_float()
+                 else _int_lit(int(ident), vt))
+        acc, rv = f"acc{k}", [f"r{k}_{i}" for i in range(n)]
+        self.lines.append(f"  {ct} {acc} = {ident};")
+        if arg:
+            self.lines.append(f"  int {acc}_c[{n}] = {{"
+                              + ", ".join(str(rd.rmin.value) for rd in dims)
+                              + "};")
+        for i in reversed(range(n)):
+            ext = rdom_extent(dims[i])
+            lo = dims[i].rmin.value
+            self.lines.append(f"  for (int {rv[i]} = {lo}; {rv[i]} < "
+                              f"{lo + ext}; ++{rv[i]}) {{")
+        scope, memo = self.scope, self.memo
+        self.scope = dict(scope, **{d.name: r for d, r in zip(dims, rv)})
+        self.memo = {} if any(d.name in scope for d in dims) else dict(memo)
+        try:
+            v = self.val(e.value)
+            conds = [self.val(c) for c in list(e.rdom.predicates)
+                     + ([e.where] if e.where is not None else [])]
+            cond = " && ".join(f"(bool){c}" for c in conds)
+            if arg:
+                if cond:
+                    v = self.let(vt, f"({cond}) ? {v} : ({ct}){ident}")
+                first = "false"
+                for i in reversed(range(n)):
+                    first = (f"({rv[i]} < {acc}_c[{i}] || ({rv[i]} == "
+                             f"{acc}_c[{i}] && {first}))")
+                a, b = ((f"hl_f32({v})", f"hl_f32({acc})") if _is_half(vt)
+                        else (v, acc))
+                big = "true" if e.op == "argmax" else "false"
+                self.lines.append(
+                    f"  if (hl_arg_better<{big}>({a}, {b}, {first})) {{ "
+                    f"{acc} = {v}; "
+                    + " ".join(f"{acc}_c[{i}] = {rv[i]};" for i in range(n))
+                    + " }")
+            else:
+                op = {"sum": "add", "product": "mul", "maximum": "max",
+                      "minimum": "min"}[e.op]
+                upd = f"{acc} = {self._combine(op, vt, acc, v)};"
+                self.lines.append(f"  if ({cond}) {upd}" if cond
+                                  else f"  {upd}")
+        finally:
+            self.scope, self.memo = scope, memo
+        self.lines += ["  }"] * n
+        if arg and e.value_index < n:
+            return self.let(e.dtype, f"({ctype(e.dtype)}){acc}_c["
+                                     f"{e.value_index}]")
+        return self.let(e.dtype, acc)
 
     def _half(self, t: Type, rhs: str) -> str:
         """An f32 result rounded to the 16-bit float type t."""
@@ -1423,6 +1535,9 @@ class _PointEmitter:
         if n in ("likely", "strict_float"):
             return self.val(e.args[0])
         half = _is_half(e.dtype)
+        if n == "pow" and pow_is_square(e):         # x * x, as eval_torch
+            a = self.val(e.args[0])
+            return self.let(e.dtype, self._combine("mul", e.dtype, a, a))
         if n in _MATH_F or (n == "round" and e.dtype.is_float()):
             if not e.dtype.is_float():
                 raise GroupUnsupported(f"{n} of {e.dtype}")

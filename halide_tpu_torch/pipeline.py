@@ -316,8 +316,11 @@ class _BoundsPass:
             self._visit(e.body, child, skip_self)
             return
         if isinstance(e, E.Reduce):
-            raise NotImplementedError(
-                "inline reductions come in slice 2 of the port")
+            child = self.engine.rdom_scope(e.rdom, scope)
+            for c in [e.value, e.where] + list(e.rdom.predicates):
+                if c is not None:
+                    self._visit(c, child, skip_self)
+            return
         for c in e.children():
             self._visit(c, scope, skip_self)
 

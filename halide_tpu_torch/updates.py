@@ -3,7 +3,9 @@
 Update definitions are classified into array-parallel forms, as in the JAX
 package (reference: src/Func.h update defs, src/Associativity.cpp):
 
-- dense combine   f(x) = f(x) op g(r, x)        -> masked reduce over rdom axes
+- dense combine   f(x) = f(x) op g(r, x)        -> a convolution or einsum for
+                  a sum of a product (eval_torch's contraction paths), else
+                  unrolled shifted reads or a masked reduce over rdom axes
 - scan            f(.., s*r+c, ..) self at -s   -> a linear scan (K2 for f32,
                   ops/scan_kernel) or min/max segmented scan; direction and
                   flipped indices like `height-r-1` both handled
@@ -20,9 +22,7 @@ The JAX package's TPU layout choices (the factored one-hot MXU scatter, the
 K-leading lane layout, lut_gather) become native scatters with the same
 results, and its environment switches are gone: each class has one route, a
 kernel's build or launch failure raises, and constant-value row histograms
-always take K3. The contraction fast paths of dense combines (convolution,
-einsum) come with inline reductions, in a later slice of the port; such
-reductions run as unrolled or dense reductions meanwhile.
+always take K3.
 
 Values are held in the compute dtype of the Func's Types (htypes.
 compute_dtype) while updates run. The caller owns the tensors of `current`
@@ -43,7 +43,8 @@ from . import expr as E
 from .bounds import BoundsEngine, Interval
 from .eval_torch import (AVal, Axis, ClampedAVal, Ctx, Realized, _apply_binop,
                          _wrap, axis_array, eval_array, evaluate, full_shape,
-                         kastype, materialize, static_int)
+                         kastype, materialize, static_int, try_conv_reduce,
+                         try_einsum_reduce)
 from .expr import CompileError, Expr
 from .ops import rowhist_kernel, scan_kernel
 from .visitors import exprs_equal, substitute, walk
@@ -72,7 +73,7 @@ _ROWHIST_MIN_KEPT = 256
 _ROWHIST_MIN_RED = 128
 
 # last reduction-lowering decision per func name (tests/debugging spy):
-# "unrolled" | "dense"
+# "conv" | "einsum" | "unrolled" | "dense"
 _last_reduce_path: dict = {}
 
 
@@ -398,6 +399,24 @@ def _try_dense_combine(func, d, current, base_ctx: Ctx, rdom_axes):
             arr = eval_array(g, base_ctx.with_bindings(bind))
             out.append(kastype(arr, t).expand(shape))
             continue
+        if op == "add" and mask is None and not unroll_forced:
+            # the contraction paths: a convolution first, then einsum
+            # above the unroll's tap count (small-tap sums unroll into
+            # one pass of shifted reads instead of a taps-deep contraction)
+            try:
+                red, path = try_conv_reduce(
+                    g, inner, [a.name for a in rdom_axes]), "conv"
+            except CompileError:
+                red = None
+            if red is None and taps > _UNROLL_TAPS:
+                red, path = try_einsum_reduce(g, inner, red_axes), "einsum"
+            if red is not None:
+                _last_reduce_path[func.name] = path
+                if red.dim() > base_ctx.ndim:
+                    red = red.reshape(red.shape[-base_ctx.ndim:])
+                out.append(_apply_binop(op, t, current[i], kastype(red, t))
+                           .expand(shape))
+                continue
         if unroll_forced or 1 < taps <= _UNROLL_TAPS:
             # static unroll: bind each rdom point to a constant and fold;
             # every term is a (shifted) read over the plain output grid

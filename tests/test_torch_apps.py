@@ -387,3 +387,94 @@ def test_harris_compute_with_and_bounds_match_jax():
     assert regions[ht]["gray"] == [(1, 94), (1, 62)]
     assert regions[ht]["Ix"] == regions[ht]["Iy"] == [(2, 93), (2, 61)]
 
+
+
+# ---------------------------------------------------------------------------
+# the apps of inline reductions and contraction updates: the sizes of
+# tests/test_apps.py, each against the JAX app and its golden under the
+# app's rule (gaussian_blur 1e-4 / 1e-5, max_filter bit for bit, conv_layer
+# and depthwise_separable_conv 1e-3 / 1e-2, nl_means 1e-3, the linear
+# algebra ops and fft their own)
+# ---------------------------------------------------------------------------
+
+REDUCTION_APPS = [
+    ("gaussian_blur", dict(width=96, height=64)),
+    ("max_filter", dict(width=48, height=40, radius=6)),
+    ("conv_layer", dict(N=2, CI=32, CO=32, W=32, H=16)),
+    ("depthwise_separable_conv", dict(N=2, CI=16, CO=8, CM=1, W=32, H=24)),
+    ("nl_means", dict(width=48, height=40, patch_size=5, search_area=5)),
+    ("sgemm", dict(M=128, N=96, K=64)),
+    ("sgemm", dict(M=64, N=64, K=48, transpose_A=True, transpose_B=True)),
+    ("sgemm_tn", dict(M=96, N=80, K=64)),
+    ("sgemm_nt", dict(M=96, N=80, K=64)),
+    ("dgemm", dict(M=64, N=96, K=48)),
+    ("hgemm", dict(M=128, N=96, K=64)),
+    ("sgemv", dict(M=64, N=128)),
+    ("saxpy", dict(N=1000)),
+    ("sdot", dict(N=4096)),
+    ("sscal_scopy", dict(N=1000)),
+    ("sasum", dict(N=4096)),
+    ("sger", dict(M=64, N=96)),
+    ("fft", dict(width=64, height=32)),
+]
+
+
+def _outputs(r):
+    if isinstance(r, (list, tuple)) or type(r).__name__ == "Realization":
+        return [np.asarray(b.to_numpy()) for b in r]
+    return [np.asarray(r.to_numpy())]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name,kw", REDUCTION_APPS,
+                         ids=[f"{n}-{i}" for i, (n, _k) in
+                              enumerate(REDUCTION_APPS)])
+def test_reduction_apps(name, kw, seed):
+    tapp = torch_get(name)(**kw)
+    data = tapp.make_inputs(seed)
+    tapp.bind(data, "cpu")
+    got = _outputs(tapp.realize("cpu"))
+    japp = jax_get(name)(**kw)
+    jdata = japp.make_inputs(seed)
+    for k in data:
+        np.testing.assert_array_equal(data[k], jdata[k])
+    japp.bind(jdata)
+    want = _outputs(japp.realize())
+    ref = tapp.reference(**data)
+    refs = list(ref) if isinstance(ref, (list, tuple)) else [ref]
+    assert len(got) == len(want) == len(refs)
+    for g, w, r in zip(got, want, refs):
+        _compare(tapp, g, w)
+        _compare(tapp, g, np.asarray(r, dtype=g.dtype))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nl_means_box_sums_through_the_group_kernel(seed, monkeypatch):
+    """nl_means at 256 x 64, patch 5, search 5 (tests/test_pallas.py:505):
+    its three 4-D box sums (d, blur_d_y and blur_d, each an hl.sum) are one
+    K1 group with no rejected plan, as the JAX package's group kernel
+    engages (a spy on its try_pallas_group); the output meets the JAX app
+    and its golden, 1e-3."""
+    from halide_tpu.ops import pallas_group
+    monkeypatch.setenv("HALIDE_TPU_NLM_KERNEL", "1")
+    calls = []
+    orig = pallas_group.try_pallas_group
+
+    def spy(*a, **kw):
+        r = orig(*a, **kw)
+        calls.append(r is not None)
+        return r
+    monkeypatch.setattr(pallas_group, "try_pallas_group", spy)
+    rejects = sum(gk.rejects.values())
+    gk.last_plan = None
+    app, data, got, want = _run_both("nl_means", monkeypatch, seed=seed,
+                                     width=256, height=64, patch_size=5,
+                                     search_area=5)
+    assert calls == [True]
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    assert gk.last_plan["func"] == "blur_d"
+    assert gk.last_plan["tile"] == (256, 64)
+    assert gk.last_plan["members"] == ["d", "blur_d_y"]
+    assert gk.last_plan["windows"] == ["input"]
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))

@@ -3,9 +3,9 @@ packages: the cases of tests/test_basics.py and tests/test_errors.py, each
 built the same way in the port (realized on the CPU) and in the JAX
 package, held against numpy and against each other (bit for bit; the
 libm case within rtol 1e-6: the two libms differ by an ulp). An error case
-must raise the package's CompileError in both. Not here: the rfactor
-error case (test_errors.py:120), which waits for the port's rfactor (ROADMAP
-queue 1, item 6)."""
+must raise the package's CompileError in both. The rfactor error case
+(test_errors.py:120) is in tests/test_torch_reductions.py, with the port's
+rfactor."""
 import numpy as np
 import pytest
 

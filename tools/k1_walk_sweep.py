@@ -4,6 +4,7 @@ the staging split, and the band walk's length.
     python tools/k1_walk_sweep.py [--out F]  # the first three, then the fit
     python tools/k1_walk_sweep.py --carry [--out F]   # the carry, its fit
     python tools/k1_walk_sweep.py --fit F    # only the fits, from a saved F
+    python tools/k1_walk_sweep.py --pow      # nl_means: x * x against powf
 
 At the canonical sizes of `chip_smoke.py`, for stencil_chain's first and
 last groups (1536x2560 u16, 32 stencils), camera_pipe (2560x1920, tile
@@ -38,7 +39,15 @@ left out):
   carry; then the walk whose times, with two window buffers where a group
   takes them and one elsewhere (the planner's choice), lose least against
   each group's fastest (the geometric mean of the ratios): the rule
-  `group_kernel._CARRY_WALK`.
+  `group_kernel._CARRY_WALK`;
+- pow (`--pow` runs only this): nl_means's box sums (1536x2560x3 f32,
+  patch 7, search 7, tile 256x64) with `pow(a - b, 2.0)` compiled as
+  x * x, what eval_torch and the kernel compute (as XLA's simplifier does
+  for the JAX package), and as libdevice's general powf, what a literal
+  translation of the intrinsic emits: the same plan (sub-tile, threads)
+  and inputs, each build held against its own plain version (eval_torch
+  computing pow the same way) on the first band's sub-tile rows, and timed
+  in turns (x * x, powf, powf, x * x).
 
 Needs one CUDA card; prints the card's name and power limit, ptxas's report
 (registers, spills) of each planned build, one JSON line per group and
@@ -220,11 +229,52 @@ def sweep_carry(cs, gk, time_of):
     return out
 
 
+def sweep_pow(cs, gk, time_of):
+    """nl_means's group built with pow(x, 2) as x * x (as planned) and as
+    powf (`pow_is_square` off in the emitter and the plain version alike,
+    for this build only), each against its own plain version on the first
+    band's sub-tile rows, then timed in turns. -> one JSON-able dict."""
+    from halide_tpu_torch import eval_torch
+    from halide_tpu_torch.apps import nl_means
+    app = nl_means.build(1536, 2560)
+    app.bind(app.make_inputs(0))
+    app.realize()
+    (plan, inputs, rmins, params, _r), = gk.group_calls(app.pipeline)
+    rows = set(range(gk._cdiv(plan.ty, plan.sy)))
+    sel = torch.tensor(gk.plain_rows(plan, rows), device=inputs[0].device)
+    dim = len(plan.extents) - 1 - plan.yi
+
+    def versus_plain(p):
+        kern = gk.launch(p, inputs, rmins).index_select(dim, sel)
+        plain = gk.run_plain(p, inputs, rmins, params, inputs[0].device,
+                             rows)
+        return (kern.double() - plain.index_select(dim, sel).double()
+                ).abs().max().item()
+    kept = (gk.pow_is_square, eval_torch.pow_is_square)
+    gk.pow_is_square = eval_torch.pow_is_square = lambda e: False
+    try:
+        (powf, *_x), = gk.group_calls(app.pipeline, replan=lambda p: [
+            dict(sub_tile=(plan.sx, plan.sy), threads=plan.threads)])
+        err_powf = versus_plain(powf)
+    finally:
+        gk.pow_is_square, eval_torch.pow_is_square = kept
+    err_mul = versus_plain(plan)
+    t_mul = [time_of(plan, inputs, rmins)]
+    t_powf = [time_of(powf, inputs, rmins) for _ in range(2)]
+    t_mul.append(time_of(plan, inputs, rmins))
+    return {"plan": {k: plan.record()[k] for k in (
+                "sub_tile", "threads", "grid", "smem_bytes")},
+            "x_times_x": {"ms": t_mul, "max_abs_err_vs_plain": err_mul},
+            "powf": {"ms": t_powf, "max_abs_err_vs_plain": err_powf}}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fit", help="a k1_sweep.json to fit the rule to")
     ap.add_argument("--carry", action="store_true",
                     help="only the carried walk's sweep and its fit")
+    ap.add_argument("--pow", action="store_true",
+                    help="only nl_means's group with x * x against powf")
     ap.add_argument("--out", default=str(ROOT / "build" / "k1_sweep.json"),
                     help="where to write the sweep's points")
     args = ap.parse_args()
@@ -250,6 +300,9 @@ def main():
     def time_of(plan, inputs, rmins):
         return cs.event_ms(lambda: gk.launch(plan, inputs, rmins), 30,
                            scratch.zero_, hold=True)
+    if args.pow:
+        print(json.dumps({"pow": sweep_pow(cs, gk, time_of)}), flush=True)
+        return
     if args.carry:
         carry = sweep_carry(cs, gk, time_of)
         out = Path(args.out)
