@@ -81,16 +81,44 @@ pointers, strides, extents, the output region and the grid as plain
 integers, and returns `cudaGetLastError()`.
 
 Beside the kernel: `run_plain`, the plain PyTorch version of the same plan
-(the same sub-tiles, shifted origins and windows, evaluated with
-eval_torch). A wrapper takes it only for tensors that lie on the CPU; on a
-CUDA tensor it launches the kernel or raises. `launches` counts launches.
+(the same windows and boxes, evaluated with eval_torch, runs of sub-tile
+rows at once where that computes what each sub-tile would). A wrapper
+takes it only for tensors that lie on the CPU; on a CUDA tensor it
+launches the kernel or raises. `launches` counts launches.
 
 Planning follows the JAX planner (member checks, footprints, window
-classification). A schedule the plan cannot take (a multi-value consumer,
-an update definition, a window that does not track the tile, the shared-
-memory limit) is evaluated whole-array by the caller, as the JAX package
-does; the reason is counted in `rejects`. A build or launch failure never
-falls back: it raises.
+classification). A schedule the plan cannot take (a consumer with an
+update or a tuple value, an update it cannot compute in the kernel, a
+window that does not track the tile, the shared-memory limit) is evaluated
+whole-array by the caller, as the JAX package does; the reason is counted
+in `rejects`. A build or launch failure never falls back: it raises.
+
+Update definitions and tuple values of members (the JAX kernel's,
+`pallas_group.py:721-736`, `:842-869`, `:1521-1547`). A member may hold a
+tuple: each value has its own buffer in its own type, one after another in
+the member's region of shared memory (`_Stage.value_off`), an undef value
+zeros. Its updates are computed in the kernel where each writes at the
+member's pure vars, in order, and reads the member only there (else the
+plan rejects: "non-aligned update write", "shifted self-read update"): a
+point's updates then read no other point's, so each thread runs them on
+the points it owns, its state in locals, before the barrier that ends the
+member's phase (`_PointEmitter.update`). An update without an RDom is one
+step; one with an RDom a loop over it, r.x innermost, its bounds
+constants, that skips the points where its predicates do not hold. A step
+computes every value from the state before it, then writes them all
+(tuple semantics). The footprint pass visits each update's values and
+predicates over the member's box widened by its RDom, so the inputs only
+an update reads (compositing's layers and `ops` table) are staged. The
+plain version applies each update with `updates.apply_update` over the
+member's box. Such a member is never carried (`carry_refused`), as the
+JAX planner slides only a member of one definition and one value. The
+consumer keeps one definition and one value, and an input of several
+values stays rejected ("multi-value input"): no app reads one in a group.
+
+A read whose index depends on data (bilateral_grid's z plane, a lookup
+table) is clamped into its buffer in the kernel, as the plain version's
+gather clips it into the window: no read leaves shared memory, even where
+the data leave the bounds the plan staged.
 
 Div-indexed windows: an input read at (x + c) / d under the tile (the
 pyramid upsample, the grid slice) is staged as the window of its own
@@ -133,8 +161,10 @@ The plan records the schedule's async()/ring_buffer() request
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 import hashlib
+import itertools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -146,9 +176,11 @@ from ..bounds import BoundsEngine, Box, Interval
 from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
                           full_shape, pow_is_square, reduce_identity)
 from ..func import Func
-from ..htypes import Type, torch_dtype
+from ..htypes import Type, compute_dtype, torch_dtype
 from ..schedule import ForType
-from ..visitors import mutate, substitute
+from ..updates import (_aligned_self, _is_undef, apply_update,
+                       find_self_calls)
+from ..visitors import find_variables, mutate, substitute
 from ..visitors import walk as walk_expr
 from . import build as _build
 
@@ -424,20 +456,34 @@ class _Stage:
     """A buffer in shared memory: an input window (func None) or a member
     over its footprint. dims[j] = (kind, d, off, ext): kind 'x'/'y' tracks
     the sub-tile origin x0/y0 (lo = floor(origin / d) + off; d > 1 only for
-    an input window read at (x + c) / d), 's' is static (lo = off, d = 1)."""
+    an input window read at (x + c) / d), 's' is static (lo = off, d = 1).
+    A member holds one buffer for each value of its tuple, in the value's
+    type, one after another (`value_off`), and its update definitions as
+    (Definition, stripped values, stripped predicates)."""
 
-    def __init__(self, name, target, type_, dims, value=None):
+    def __init__(self, name, target, type_, dims, values=(), updates=()):
         self.name = name
         self.target = target
         self.type = type_
         self.dims = dims
-        self.value = value          # the stripped point expr of a member
+        # the stripped point exprs of a member's pure definition, one per
+        # value (undef: zeros); `value` is the first (None for a window)
+        self.values = list(values)
+        self.value = self.values[0] if self.values else None
+        self.types = [v.dtype for v in self.values] or [type_]
+        self.updates = list(updates)
         self.smem_off = 0
         self.index = 0
         # a carried member: the dim along the walk axis (its buffer is
         # kept across the walk's steps, the overlap moved to its front at
         # each); None elsewhere
         self.carry: Optional[int] = None
+
+    def exprs(self) -> list:
+        """Every expr a member evaluates: its values, then each update's
+        values and predicates."""
+        return self.values + [e for _d, vals, preds in self.updates
+                              for e in vals + preds]
 
     def pitch(self) -> int:
         """Elements from one row (dim-0 run) of the buffer to the next. A
@@ -449,7 +495,14 @@ class _Stage:
         return (_aligned(ext0 * itemsize(self.type)) + 16) \
             // itemsize(self.type)
 
+    def value_off(self, k: int) -> int:
+        """Bytes from a member's buffer to that of its value k."""
+        n = math.prod(e for _k, _d, _o, e in self.dims)
+        return sum(_aligned(n * itemsize(t)) for t in self.types[:k])
+
     def nbytes(self) -> int:
+        if len(self.types) > 1:
+            return self.value_off(len(self.types))
         return self.pitch() * math.prod(e for _k, _d, _o, e in self.dims[1:]) \
             * itemsize(self.type)
 
@@ -505,6 +558,7 @@ class GroupPlan:
                 "prefetch": "cp.async" if n_buf == 2 else "none",
                 "sliding": list(self.sliding),
                 "carry_dropped": dict(self.carry_dropped),
+                "carry_refused": dict(self.carry_refused),
                 "async_requested": self.async_requested,
                 "part": self.part,
                 "windows": [w.name for w in self.windows],
@@ -556,7 +610,8 @@ def _member_layout(members: List["_Stage"], out_value,
                 last[id(e.target)] = max(last[id(e.target)], ph)
         walk_expr(value, fn)
     for k, m in enumerate(members):
-        reads(m.value, k + 1)
+        for e in m.exprs():
+            reads(e, k + 1)
     reads(out_value, len(members) + 1)
     placed: List[Tuple[int, int, int]] = []       # (off, end, last phase)
     top = 0
@@ -595,13 +650,21 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     xdim, tx, ydim, ty = tile
     members = group_members(f, graph)
     for m in members:
-        if len(m._defs) > 1:
-            raise GroupUnsupported(
-                f"member {m.name}: update definition")
-        if len(m._defs[0].values) > 1:
-            raise GroupUnsupported(f"member {m.name}: multi-value")
         if m._fschedule.debug_file:
             raise GroupUnsupported(f"member {m.name}: debug_to_file")
+        # (pallas_group.py:721-736) an update is computed in the kernel
+        # where it writes at the pure vars, in order, and reads the member
+        # only there: each point's updates then depend on that point alone
+        for d in m._defs[1:]:
+            if not all(isinstance(a, E.Variable) and a.name == v.name
+                       for a, v in zip(d.args, m._defs[0].args)):
+                raise GroupUnsupported(
+                    f"member {m.name}: non-aligned update write")
+            for v in list(d.values) + list(d.predicates):
+                if not all(_aligned_self(c, d.args)
+                           for c in find_self_calls(v, m)):
+                    raise GroupUnsupported(
+                        f"member {m.name}: shifted self-read update")
         mdims = {v.name for v in m._defs[0].args}
         if xdim not in mdims or (ydim is not None and ydim not in mdims):
             raise GroupUnsupported(
@@ -624,21 +687,32 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     def strip(v):
         return _strip_boundary_clamps(_inline_expand(v), ext_boxes, engine)
 
-    svals = {id(f): strip(f._defs[0].values[0])}
-    for m in members:
-        svals[id(m)] = strip(m._defs[0].values[0])
+    svalue = strip(f._defs[0].values[0])
+    # each member's stripped pure values, and its updates' (Definition,
+    # values, predicates)
+    mvals = {id(m): [strip(v) for v in m._defs[0].values] for m in members}
+    mupds = {id(m): [(d, [strip(v) for v in d.values],
+                      [strip(p) for p in d.predicates])
+                     for d in m._defs[1:]] for m in members}
 
     def footprints(scope):
-        """Boxes of the members and the inputs, consumers first."""
+        """Boxes of the members and the inputs, consumers first. An update
+        reads over the member's box, widened by its RDom where it has one
+        (pallas_group.py:842-869), so the inputs that only an update reads
+        are staged too."""
         fp = _Footprints(engine)
-        fp.visit(svals[id(f)], scope)
+        fp.visit(svalue, scope)
         for m in reversed(members):
             bb = fp.boxes.get(id(m))
             if bb is None or not bb.defined():
                 raise GroupUnsupported(f"member {m.name} is not read")
-            fp.visit(svals[id(m)],
-                     {v.name: bb.dims[i]
-                      for i, v in enumerate(m._defs[0].args)})
+            sc = {v.name: bb.dims[i] for i, v in enumerate(m._defs[0].args)}
+            for v in mvals[id(m)]:
+                fp.visit(v, sc)
+            for d, vals, preds in mupds[id(m)]:
+                sc_d = engine.rdom_scope(d.rdom, sc) if d.rdom else sc
+                for e in vals + preds:
+                    fp.visit(e, sc_d)
         return fp
 
     full = {dims[i]: Interval(mins[i], mins[i] + extents[i] - 1)
@@ -717,8 +791,8 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
                     k, d, _lo, _ext = sdims[-1]
                     sdims[-1] = (k, d, lo, ext + 1)
             if tid in member_ids:
-                stages.append(_Stage(t.name, t, t._defs[0].values[0].dtype,
-                                     sdims, svals[tid]))
+                stages.append(_Stage(t.name, t, mvals[tid][0].dtype, sdims,
+                                     mvals[tid], mupds[tid]))
             else:
                 real = ctx0.realizations[tid]
                 stages.append(_Stage(name, t, t.output_type(0), sdims))
@@ -729,7 +803,6 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     ntx = _cdiv(extents[xi], tx)
     nty = _cdiv(extents[yi], ty) if yi is not None else 1
     band_walk = band_walk_wanted(f, xdim, ydim, ntx, nty)
-    svalue = svals[id(f)]
     ext_x = extents[xi]
     ext_y = extents[yi] if yi is not None else 1
     other = math.prod(e for i, e in enumerate(extents) if i not in (xi, yi))
@@ -737,8 +810,10 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     # the carry: the walk axis and the members whose schedule asks for it
     slide = _carry_axis(f, xdim, ydim, extents[xi] // tx, band_walk) \
         if carry else None
-    want = {id(m) for m in members if slide and _carry_wanted(
-        m, f, slide[1])}
+    asked = [m for m in members if slide and _carry_wanted(m, f, slide[1])]
+    refused = {m.name: _carry_refused(m) for m in asked
+               if _carry_refused(m)}
+    want = {id(m) for m in asked if m.name not in refused}
 
     def layout(stages, carried=frozenset(), axis="y"):
         """-> (fixed window bytes, walking window bytes, member bytes). A
@@ -819,11 +894,11 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
             return 2 * (walk - 1) / walk * (e - step) / e * math.prod(
                 x for _k, _d, _o, x in st.dims)
         ops = _weighted(point_ops(svalue)) * out_pts + sum(
-            _weighted(point_ops(st.value)) * share(st) * math.prod(
+            _weighted(member_ops(st)) * share(st) * math.prod(
                 e for _k, _d, _o, e in st.dims) + moved(st)
             for st in stages if st.value is not None)
         free = _weighted(point_ops(svalue)) * out_pts + sum(
-            _weighted(point_ops(s.value)) * sx * sy * math.prod(
+            _weighted(member_ops(s)) * sx * sy * math.prod(
                 e for k, _d, _o, e in s.dims if k == "s")
             for s in stages if s.value is not None)
         staged = sum(s.data_bytes() for s in stages if s.value is None) \
@@ -904,7 +979,8 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
             off += _aligned(s.nbytes())
     ctype(out_type)
     for s in ordered:
-        ctype(s.type)
+        for t in s.types:
+            ctype(t)
     plan = GroupPlan(
         f=f, value=svalue, out_type=out_type, dims=dims, xi=xi, yi=yi,
         mins=mins, extents=extents, tx=tx, ty=ty, sx=sx, sy=sy,
@@ -920,13 +996,14 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         member_bytes=member_bytes, band_walk=band_walk, axis=axis,
         walk=best["walk"], n_buf=best["n_buf"],
         sliding=sorted(carried), carry_dropped=best["dropped"],
+        carry_refused=refused,
         async_requested=_async_requested(f, members))
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
 
 
 _FREE_INTRIN = {"param", "buffer_min", "buffer_extent", "likely",
-                "strict_float"}
+                "strict_float", "undef"}
 # operations one call of an intrinsic counts where not 1: clz of a width
 # below 32 corrects its 32-bit count, ctz is __ffs and the select of 0,
 # the divisions rounded toward zero guard their divisor (an integer
@@ -940,19 +1017,12 @@ _WHOLE_ARRAY_INTRIN = {"print", "print_when", "require", "random"}
 
 
 def point_ops(value) -> Tuple[int, int]:
-    """(f32, integer) operations one point of `value` does on its data. The
+    """(f32, integer) operations one point of `value` (an expr, or a list
+    of exprs computed together: a tuple's values) does on its data. The
     coordinate arithmetic of a read's indices is not counted unless the
     index depends on data; an operation is counted by its operands' type (a
     float comparison is an f32 operation), an intrinsic as `_INTRIN_OPS`
     says, a bit cast not at all; a shared subexpression once."""
-    def reads_data(e):
-        hit = [False]
-
-        def fn(c):
-            hit[0] = hit[0] or isinstance(c, E.Call)
-        walk_expr(e, fn)
-        return hit[0]
-
     n, seen = [0, 0], set()
 
     def visit(e):
@@ -961,7 +1031,7 @@ def point_ops(value) -> Tuple[int, int]:
         seen.add(id(e))
         if isinstance(e, E.Call):
             for a in e.args:
-                if reads_data(a):
+                if _reads_data(a):
                     visit(a)
             return
         if isinstance(e, E.Reduce):
@@ -975,6 +1045,22 @@ def point_ops(value) -> Tuple[int, int]:
                     n[1] += i * pts
             n[0 if e.value.dtype.is_float() else 1] += pts
             return
+        if isinstance(e, list):
+            for c in e:
+                visit(c)
+            return
+        if isinstance(e, E.Select) and not find_variables(e.cond) and \
+                not _reads_data(e.cond):
+            # a constant condition (a mux at a bound RVar): the branch it
+            # takes
+            try:
+                c = bool(eval_array(e.cond, Ctx(0, {}, {}, {}, {}, "cpu"))
+                         .reshape(()).item())
+            except (CompileError, KeyError, TypeError):
+                c = None
+            if c is not None:
+                visit(e.true_value if c else e.false_value)
+                return
         t, k = None, 1
         if isinstance(e, E.Binary):
             t = e.a.dtype
@@ -992,6 +1078,72 @@ def point_ops(value) -> Tuple[int, int]:
             visit(c)
     visit(value)
     return n[0], n[1]
+
+
+def rdom_points(d) -> int:
+    """The points of an update's RDom (1 for an update without one)."""
+    return math.prod(rdom_extent(rv) for rv in d.rdom.dims) if d.rdom \
+        else 1
+
+
+def member_ops(st: "_Stage", passing=None) -> Tuple[int, int]:
+    """(f32, integer) operations of one point of a member: its values
+    (`point_ops`), then each update's predicates at every point of its
+    RDom and its values at every point, or, where `passing` is given (a
+    run's data, `update_passing`), at the RDom points in `passing[k]` for
+    update k, each with its RVars bound: a mux at an RVar then counts the
+    branch it takes."""
+    n = list(point_ops(st.values))
+    for k, (d, vals, preds) in enumerate(st.updates):
+        pts = rdom_points(d)
+        f, i = point_ops(preds)
+        n[0], n[1] = n[0] + f * pts, n[1] + i * pts
+        if passing is None:
+            f, i = point_ops(vals)
+            n[0], n[1] = n[0] + f * pts, n[1] + i * pts
+            continue
+        for p in passing[k]:
+            f, i = point_ops(_at_point(vals, d, p))
+            n[0], n[1] = n[0] + f, n[1] + i
+    return n[0], n[1]
+
+
+def _at_point(exprs, d, point) -> list:
+    """exprs with the RVars of d's RDom bound to `point`, rebuilt together
+    (one memo), so that the subexprs they share stay shared."""
+    binds = {rv.name: E.IntImm(Type("int", 32), v)
+             for rv, v in zip(d.rdom.dims, point)} if d.rdom else {}
+    memo: dict = {}
+    return [mutate(e, lambda n: binds.get(n.name) if isinstance(
+        n, E.Variable) else None, memo) for e in exprs]
+
+
+def update_passing(st: "_Stage", realz: dict, params: dict,
+                   dev) -> List[List[Tuple[int, ...]]]:
+    """The RDom points of each of a member's updates whose predicates pass
+    on a run's data (`realz`: id -> Realized of the inputs they read, as
+    `group_calls` gives them): each predicate evaluated with the RVars
+    bound (compositing's `r0 == ops[r1]` reads the `ops` table). A
+    predicate that reads a pure var, whose answer then differs from point
+    to point of the member, counts as passing. Points in RDom order, dim 0
+    fastest."""
+    out = []
+    for d, _vals, preds in st.updates:
+        dims = list(d.rdom.dims) if d.rdom else []
+        ranges = [range(rv.rmin.value, rv.rmin.value + rdom_extent(rv))
+                  for rv in reversed(dims)]
+        pts = []
+        for rev in itertools.product(*ranges):
+            point = tuple(reversed(rev))
+            ok = True
+            for e in _at_point(preds, d, point):
+                if not find_variables(e):
+                    v = eval_array(e, Ctx(0, {}, {}, realz, params, dev))
+                    ok = ok and bool(v.reshape(()).item())
+            if ok:
+                pts.append(point)
+        out.append(pts)
+    return out
 
 
 def rdom_extent(rv) -> int:
@@ -1081,6 +1233,17 @@ def _carry_wanted(m: Func, f: Func, dim: str) -> bool:
     var = getattr(slv.var, "name", slv.var)
     return (slv.func is f and outer is not None and var in order
             and outer in order and order.index(var) > order.index(outer))
+
+
+def _carry_refused(m: Func) -> Optional[str]:
+    """Why a member the schedule asks to carry is not carried: the JAX
+    planner slides only a member of one definition and one value
+    (pallas_group.py:1253). None where it may be carried."""
+    if len(m._defs) > 1:
+        return "update definition: not carried"
+    if len(m._defs[0].values) > 1:
+        return "tuple value: not carried"
+    return None
 
 
 def _async_requested(f: Func, members) -> bool:
@@ -1255,48 +1418,122 @@ def _stage_box(s: _Stage, x0: int, y0: int):
              ext) for k, d, off, ext in s.dims]
 
 
+def _tracks_by_data(plan: GroupPlan) -> bool:
+    """A read in the group indexes a dim of a window or member that moves
+    with the sub-tile by a value that depends on data: its clip into the
+    buffer then depends on the sub-tile."""
+    by_id = {id(s.target): s for s in plan.windows + plan.members}
+    hit = [False]
+
+    def fn(e):
+        s = by_id.get(id(e.target)) if isinstance(e, E.Call) else None
+        if s is not None and any(s.dims[j][0] != "s" and _reads_data(a)
+                                 for j, a in enumerate(e.args)):
+            hit[0] = True
+    for v in [plan.value] + [x for m in plan.members for x in m.exprs()]:
+        walk_expr(v, fn)
+    return hit[0]
+
+
+def _plain_runs(plan: GroupPlan, rows=None):
+    """The boxes the plain version evaluates, as (first, last) sub-tile
+    origins: each run of consecutive sub-tile rows (all of them, or those
+    in `rows`) is one box from its first sub-tile to its last. A point's
+    value depends only on its coordinates and the windows' contents at
+    coordinates fixed relative to it, and a window's content at a
+    coordinate is the same in every sub-tile's window (the input there, or
+    its edge replicated), so a run computes what its sub-tiles compute
+    one by one; the shifted-inwards last sub-tiles' overlap is computed
+    once. Where `_tracks_by_data`, each sub-tile is its own box."""
+    origins = list(_origins(plan, rows))
+    if _tracks_by_data(plan):
+        return [(o, o) for o in origins]
+    runs, start = [], None
+    for k, o in enumerate(origins):
+        start = o if start is None else start
+        nxt = origins[k + 1] if k + 1 < len(origins) else None
+        # a run ends before a sub-tile row that does not follow this one
+        # (the y origins move by at most sy from row to row)
+        if nxt is None or (nxt[1] != o[1] and nxt[1] - o[1] > plan.sy):
+            runs.append((start, o))
+            start = None
+    return runs
+
+
 def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
               dev: torch.device, rows=None) -> torch.Tensor:
-    """The same plan as the kernel, sub-tile by sub-tile, in torch: windows
-    gathered with edge replication, members and the sub-tile evaluated with
-    eval_torch over the same boxes, in the same storage types. `params`
+    """The same plan as the kernel, in torch: windows gathered with edge
+    replication, members and the output evaluated with eval_torch over the
+    boxes of runs of sub-tiles (`_plain_runs`; each sub-tile's box where a
+    read's clip depends on the sub-tile), in the same storage types, each
+    member's updates applied in order (updates.apply_update). `params`
     maps id(Param) to its value. With `rows` (sub-tile row indices), only
     those sub-tiles are evaluated, and the rest of the output is left
     unwritten (`plain_rows` gives the output rows they cover)."""
     n = len(plan.dims)
     out = torch.empty(tuple(reversed(plan.extents)),
                       dtype=torch_dtype(plan.out_type), device=dev)
-    for x0, y0 in _origins(plan, rows):
+
+    def box(s, first, last):
+        """[(lo, ext)] of stage s over the sub-tiles first..last."""
+        a, b = _stage_box(s, *first), _stage_box(s, *last)
+        return [(lo, hb + eb - lo) for (lo, _e), (hb, eb) in zip(a, b)]
+
+    for first, last in _plain_runs(plan, rows):
         realz: Dict[int, Realized] = {}
         for w, arr, rmins in zip(plan.windows, inputs, real_mins):
-            lohi = _stage_box(w, x0, y0)
+            lohi = box(w, first, last)
             realz[id(w.target)] = Realized(
                 (edge_window(arr, w.type, rmins, lohi),),
                 [lo for lo, _ in lohi], w.name)
 
-        def evaluate_over(fn, value, lohi, t):
+        def context(fn, lohi, realizations):
             axes = {v.name: Axis(v.name, i, lo, ext)
                     for i, (v, (lo, ext)) in enumerate(
                         zip(fn._defs[0].args, lohi))}
-            ctx = Ctx(len(lohi), axes, {}, realz, params, dev, fold=True)
-            val = eval_array(value, ctx)
-            return val.expand(full_shape(ctx, list(axes.values()))) \
-                .to(torch_dtype(t))
+            return Ctx(len(lohi), axes, {}, realizations, params, dev,
+                       fold=True)
+
+        def evaluate_over(fn, value, lohi, dtype):
+            ctx = context(fn, lohi, realz)
+            shape = full_shape(ctx, list(ctx.axes.values()))
+            if _is_undef(value):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+            return eval_array(value, ctx).expand(shape).to(dtype)
 
         for m in plan.members:
-            lohi = _stage_box(m, x0, y0)
+            lohi = box(m, first, last)
+            mins = [lo for lo, _ in lohi]
+            # while updates run, the values stay in their compute dtypes,
+            # as pipeline._evaluate_func keeps them
+            dts = [compute_dtype(t) if m.updates else torch_dtype(t)
+                   for t in m.types]
+            cur = [evaluate_over(m.target, v, lohi, dt)
+                   for v, dt in zip(m.values, dts)]
+            if m.updates:          # an update may write them in place
+                cur = [a.clone(memory_format=torch.contiguous_format)
+                       for a in cur]
+            # (pallas_group.py:1531-1547) each update over the member's
+            # box, the self-reads seeing the state before it
+            for d, vals, preds in m.updates:
+                ctx = context(m.target, lohi, dict(realz))
+                ctx.realizations[id(m.target)] = Realized(cur, mins, m.name)
+                d2 = copy.copy(d)
+                d2.values, d2.predicates = tuple(vals), list(preds)
+                cur = apply_update(m.target, d2, cur, ctx)
             realz[id(m.target)] = Realized(
-                (evaluate_over(m.target, m.value, lohi, m.type),),
-                [lo for lo, _ in lohi], m.name)
+                tuple(a.to(torch_dtype(t)) for a, t in zip(cur, m.types)),
+                mins, m.name)
         lohi = []
         for i in range(n):
             if i == plan.xi:
-                lohi.append((x0, plan.sx))
+                lohi.append((first[0], last[0] + plan.sx - first[0]))
             elif i == plan.yi:
-                lohi.append((y0, plan.sy))
+                lohi.append((first[1], last[1] + plan.sy - first[1]))
             else:
                 lohi.append((plan.mins[i], plan.extents[i]))
-        tile = evaluate_over(plan.f, plan.value, lohi, plan.out_type)
+        tile = evaluate_over(plan.f, plan.value, lohi,
+                             torch_dtype(plan.out_type))
         out[tuple(slice(lo - plan.mins[i], lo - plan.mins[i] + ext)
                   for i, (lo, ext) in reversed(list(enumerate(lohi))))] = tile
     return out
@@ -1313,6 +1550,25 @@ def _cname(name: str) -> str:
 def _field(s: "_Stage") -> str:
     return f"s{s.index}_" + "".join(c if c.isalnum() else "_"
                                     for c in s.name)
+
+
+def _vfield(s: "_Stage", k: int) -> str:
+    """The Tile field of a member's value k (its first value: _field)."""
+    return _field(s) if k == 0 else f"{_field(s)}_v{k}"
+
+
+def _zero(t: Type) -> str:
+    return _float_lit(0.0, t) if t.is_float() else _int_lit(0, t)
+
+
+def _reads_data(e) -> bool:
+    """e reads a Func or an input (its value depends on data)."""
+    hit = [False]
+
+    def fn(c):
+        hit[0] = hit[0] or isinstance(c, E.Call)
+    walk_expr(e, fn)
+    return hit[0]
 
 
 def _float_lit(v: float, t: Type) -> str:
@@ -1359,6 +1615,43 @@ class _PointEmitter:
         self.scope = scope
         self.lines: List[str] = []
         self.memo: Dict[int, str] = {}
+        # a member's updates: (id of the member, the locals holding the
+        # state of its values), which its aligned self-reads read
+        self.state: Optional[Tuple[int, List[str]]] = None
+
+    def update(self, d, vals, preds, types) -> None:
+        """One update of the member whose state is `self.state`: a loop
+        over its RDom (r.x innermost, the bounds constants) or one step.
+        A point where the predicates hold computes every value from the
+        state before the step, then writes them all (tuple semantics); an
+        undef value is left as it was. The write and every self-read are
+        at the point's own coordinates (the plan's gate), so no point
+        depends on another's."""
+        dims = list(d.rdom.dims) if d.rdom is not None else []
+        k = len(self.lines)
+        rv = [f"u{k}_{i}" for i in range(len(dims))]
+        for i in reversed(range(len(dims))):
+            lo, ext = dims[i].rmin.value, rdom_extent(dims[i])
+            self.lines.append(f"  for (int {rv[i]} = {lo}; {rv[i]} < "
+                              f"{lo + ext}; ++{rv[i]}) {{")
+        scope, memo = self.scope, self.memo
+        self.scope = dict(scope, **{dm.name: r for dm, r in zip(dims, rv)})
+        # what the step computes reads the state: forgotten after it
+        self.memo = {} if any(dm.name in scope for dm in dims) else dict(memo)
+        try:
+            conds = [self.val(p) for p in preds]
+            if conds:
+                self.lines.append("  if (" + " && ".join(
+                    f"(bool){c}" for c in conds) + ") {")
+            new = [(j, self.let(t, f"hl_cast<{ctype(t)}>({self.val(v)})"))
+                   for j, (v, t) in enumerate(zip(vals, types))
+                   if not _is_undef(v)]
+            self.lines += [f"  {self.state[1][j]} = {n};" for j, n in new]
+            if conds:
+                self.lines.append("  }")
+        finally:
+            self.scope, self.memo = scope, memo
+        self.lines += ["  }"] * len(dims)
 
     def let(self, t: Type, rhs: str) -> str:
         name = f"t{len(self.lines)}"
@@ -1642,16 +1935,32 @@ class _PointEmitter:
         return self.let(t, f"hl_cast<{ctype(t)}>({rint}({r}))")
 
     def _read(self, e: E.Call) -> str:
+        """A read of a window or a member's value buffer. An index that
+        depends on data (bilateral_grid's z) is clamped into the buffer,
+        as the plain version's gather clips it: no read leaves the
+        buffer, even where the bounds the plan staged were not the data's.
+        A member's read of itself in its update is its state."""
+        if self.state is not None and id(e.target) == self.state[0]:
+            return self.state[1][e.value_index]
         s = self.stages.get(id(e.target))
-        if s is None or e.value_index != 0:
+        if s is None:
             raise GroupUnsupported(
                 f"read of {getattr(e.target, 'name', '?')} in a kernel")
+        if e.value_index >= len(s.types):
+            raise GroupUnsupported(f"read of value {e.value_index} of "
+                                   f"{s.name} in a kernel")
         idx, stride = [], 1
         for j, a in enumerate(e.args):
             av = self.val(a)
-            idx.append(f"({av} - t.{_field(s)}_lo[{j}]) * {stride}")
+            lo = f"t.{_field(s)}_lo[{j}]"
+            if _reads_data(a):
+                av = (f"hl_min<int>(hl_max<int>((int){av}, {lo}), {lo} + "
+                      f"{s.dims[j][3] - 1})")
+            idx.append(f"({av} - {lo}) * {stride}")
             stride *= s.pitch() if j == 0 else s.dims[j][3]
-        return self.let(s.type, f"t.{_field(s)}[{' + '.join(idx)}]")
+        return self.let(s.types[e.value_index],
+                        f"t.{_vfield(s, e.value_index)}"
+                        f"[{' + '.join(idx)}]")
 
 
 def emit_source(plan: GroupPlan, ctx0: Ctx):
@@ -1692,24 +2001,44 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "  int x0, y0;",
     ]
     for s in stages:
-        L.append(f"  const {ctype(s.type)}* {_field(s)};")
+        for k, t in enumerate(s.types):
+            L.append(f"  const {ctype(t)}* {_vfield(s, k)};")
         L.append(f"  int {_field(s)}_lo[{len(s.dims)}];")
         if s.value is None:
             L.append(f"  int {_field(s)}_ph;  // copy phase; -1: edge path")
     L += ["};", ""]
-    # point functions
+    # point functions: a member's computes each of its values at a point,
+    # runs its updates on them, and stores them at element i of its
+    # buffers; the output's returns its value
     for s in plan.members + [None]:
         fn = plan.f if s is None else s.target
-        value = plan.value if s is None else s.value
-        t = plan.out_type if s is None else s.type
         args = [v.name for v in fn._defs[0].args]
         em = _PointEmitter(by_id, ctx0, {a: _cname(a) for a in args})
-        result = em.val(value)
-        pname = "point_out" if s is None else f"point_{_field(s)}"
         params = ", ".join(f"int {_cname(a)}" for a in args)
-        L.append(f"HL_FN {ctype(t)} {pname}(const Tile& t, {params}) {{")
-        L += em.lines
-        L += [f"  return hl_cast<{ctype(t)}>({result});", "}", ""]
+        if s is None:
+            result = em.val(plan.value)
+            t = ctype(plan.out_type)
+            L.append(f"HL_FN {t} point_out(const Tile& t, {params}) {{")
+            L += em.lines
+            L += [f"  return hl_cast<{t}>({result});", "}", ""]
+            continue
+        res = [_zero(t) if _is_undef(v) else em.val(v)
+               for v, t in zip(s.values, s.types)]
+        bufs = [f"(({ctype(t)}*)t.{_vfield(s, k)})[i]"
+                for k, t in enumerate(s.types)]
+        if s.updates:
+            state = [f"st{k}" for k in range(len(s.types))]
+            em.lines += [f"  {ctype(t)} {n} = hl_cast<{ctype(t)}>({r});"
+                         for n, t, r in zip(state, s.types, res)]
+            em.state = (id(s.target), state)
+            for d, vals, preds in s.updates:
+                em.update(d, vals, preds, s.types)
+            res = state
+        em.lines += [f"  {b} = hl_cast<{ctype(t)}>({r});"
+                     for b, t, r in zip(bufs, s.types, res)]
+        L.append(f"HL_FN void point_{_field(s)}(const Tile& t, int i, "
+                 f"{params}) {{")
+        L += em.lines + ["}", ""]
     # runtime parameters
     L.append("struct Params {")
     for k, w in enumerate(plan.windows):
@@ -1769,8 +2098,9 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
             base = f"{origin} + " if origin else ""
             L.append(f"  t.{cn}_lo[{j}] = {base}{off};")
         if s.value is not None:
-            L.append(f"  t.{cn} = (const {ct}*)(smem + p.moff + "
-                     f"{s.smem_off});")
+            L += [f"  t.{_vfield(s, k)} = (const {ctype(t)}*)(smem + p.moff "
+                  f"+ {s.smem_off + s.value_off(k)});"
+                  for k, t in enumerate(s.types)]
             continue
         k = plan.windows.index(s)
         buf = " + buf * WALK_BYTES" if _walks(s, plan.axis) else ""
@@ -1813,7 +2143,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "  switch (ph) {",
     ]
     for k, m in enumerate(plan.members):
-        cn, ct = _field(m), ctype(m.type)
+        cn = _field(m)
         exts = [e for _k, _d, _o, e in m.dims]
 
         def point_body(skip=0, j=None):
@@ -1823,7 +2153,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                   for d in range(len(exts))]
             at = "i" if j is None else " + ".join(
                 f"{c} * {math.prod(exts[:d])}" for d, c in enumerate(cs))
-            return [f"      (({ct}*)t.{cn})[{at}] = point_{cn}(t, "
+            return [f"      point_{cn}(t, {at}, "
                     + ", ".join(f"t.{cn}_lo[{d}] + {c}"
                                 for d, c in enumerate(cs)) + ");"]
         L.append(f"  case {k + 1}: {{")

@@ -478,3 +478,217 @@ def test_nl_means_box_sums_through_the_group_kernel(seed, monkeypatch):
     assert gk.last_plan["windows"] == ["input"]
     _compare(app, got, want)
     _compare(app, got, app.reference(**data))
+
+
+# ---------------------------------------------------------------------------
+# the last image apps: compositing, bilateral_grid, bgu, resize, lens_blur
+# (tests/test_apps.py:76, 109, 113, 118, 123, 140, 190)
+# ---------------------------------------------------------------------------
+
+LENS_SMALL = dict(width=48, height=40, slices=8, focus_depth=4,
+                  aperture_samples=4, levels=4)
+
+
+@pytest.mark.parametrize("name,kw,seed", [
+    ("compositing", dict(width=64, height=48), 0),
+    ("bilateral_grid", dict(width=64, height=48), 0),
+    ("bilateral_grid", dict(width=64, height=48), 1),
+    ("bgu", dict(width=128, height=96), 0),
+    ("bgu", dict(width=128, height=96), 1),
+    ("lens_blur", dict(LENS_SMALL, blur_radius_scale=0.0), 0),
+])
+def test_last_image_apps(name, kw, seed, monkeypatch):
+    """compositing and bilateral_grid at these sizes whole-array (their
+    tiles do not divide them), bgu with its tile clamped to the extent,
+    lens_blur's zero-radius case (output == left / 255): against the JAX
+    app and the golden, under the app's own rule (compositing bit for
+    bit)."""
+    app, data, got, want = _run_both(name, monkeypatch, seed=seed, **kw)
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def _jax_engages(name, monkeypatch, env=None, **kw):
+    """The JAX app's realize with a spy on its group kernel (as
+    tests/test_pallas.py:85-115). -> (output, engaged per group call)."""
+    from halide_tpu.ops import pallas_group
+    for k, v in (env or {}).items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    orig = pallas_group.try_pallas_group
+
+    def spy(*a, **k):
+        r = orig(*a, **k)
+        calls.append(r is not None)
+        return r
+    monkeypatch.setattr(pallas_group, "try_pallas_group", spy)
+    japp = jax_get(name)(**kw)
+    japp.bind(japp.make_inputs(0))
+    return np.asarray(japp.realize().to_numpy()), calls
+
+
+@pytest.mark.parametrize("name,kw,env,members,windows", [
+    ("compositing", dict(width=512, height=128),
+     {"HALIDE_TPU_CO_KERNEL": "1"}, ["blended"],
+     ["ops"] + [f"layer_{i}" for i in range(6)]),
+    ("bilateral_grid", dict(width=512, height=256), None, ["interpolated"],
+     ["blury", "input"]),
+])
+def test_tiled_image_apps_go_through_the_group_kernel(
+        name, kw, env, members, windows, monkeypatch):
+    """compositing at 512x128 (tests/test_pallas.py:172: the tuple-valued
+    `blended` with its masked 5x5 update chain a member) and
+    bilateral_grid at 512x256 (tests/test_pallas.py:121: the trilinear
+    slice, blury a window with x / 8 and y / 8 dims): the port's plan
+    takes the group, with no reject, where the JAX kernel engages, and
+    the output meets the JAX app and the golden (compositing bit for
+    bit)."""
+    rejects = sum(gk.rejects.values())
+    gk.last_plan = None
+    tapp = torch_get(name)(**kw)
+    data = tapp.make_inputs(0)
+    tapp.bind(data, "cpu")
+    got = tapp.realize("cpu").to_numpy()
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    assert gk.last_plan["func"] == tapp.pipeline.outputs[0].name
+    assert gk.last_plan["members"] == members
+    assert gk.last_plan["windows"] == windows
+    want, engaged = _jax_engages(name, monkeypatch, env, **kw)
+    assert engaged == [True]
+    _compare(tapp, got, want)
+    _compare(tapp, got, tapp.reference(**data))
+
+
+def test_bgu_slice_group_plan():
+    """bgu's slice at 512x256, tile 512x256 (the JAX app's default): one
+    group, imz and interpolated its members, the coarse `line` table a
+    window whose x dim is read at x / 64 (big_sigma: s_sigma 8 times the
+    upsample 8), and slice_loc; the output within the app's rule of its
+    golden. imz="inline" makes imz part of interpolated's point
+    function."""
+    app = torch_get("bgu")(width=512, height=256)
+    data = app.make_inputs(0)
+    app.bind(data, "cpu")
+    rejects = sum(gk.rejects.values())
+    got = app.realize("cpu").to_numpy()
+    assert sum(gk.rejects.values()) == rejects, dict(gk.rejects)
+    rec = gk.last_plan
+    assert rec["members"] == ["bgu_imz", "bgu_interp"]
+    assert rec["windows"] == ["bgu_line", "slice_loc"]
+    assert ("x", 64) in rec["div_windows"]["bgu_line"]
+    _compare(app, got, app.reference(**data))
+    inline = torch_get("bgu")(width=512, height=256, imz="inline")
+    inline.bind(data, "cpu")
+    _compare(inline, inline.realize("cpu").to_numpy(), got)
+    assert gk.last_plan["members"] == ["bgu_interp"]
+
+
+@pytest.mark.parametrize("kw,einsums", [
+    (dict(width=96, height=64, scale_factor=0.5), 0),
+    (dict(width=48, height=32, scale_factor=2.0, interpolation="linear",
+          upsample=True), 0),
+    (dict(width=256, height=160, scale_factor=0.5), 2)])
+def test_resize(kw, einsums, monkeypatch):
+    """resize's four hl.sum stages: the two kernel normalizations (one
+    factor) take the evaluator's plain reduce in both packages, and so do
+    the two full-width tap sums below the einsum path's grid of 2^22
+    points; at 256x160 their grids pass it, and both packages contract
+    them by einsum (a spy on the JAX package's try_conv_reduce /
+    try_einsum_reduce; eval_torch.reduce_paths). The output against the
+    JAX app and the golden."""
+    from halide_tpu import eval_jnp
+    from halide_tpu_torch import eval_torch
+    from halide_tpu_torch import updates as tupdates
+    tries = []
+    for fname in ("try_conv_reduce", "try_einsum_reduce"):
+        orig = getattr(eval_jnp, fname)
+
+        def spy(*a, _orig=orig, _name=fname, **k):
+            r = _orig(*a, **k)
+            tries.append((_name, r is not None))
+            return r
+        monkeypatch.setattr(eval_jnp, fname, spy)
+    before = dict(eval_torch.reduce_paths)
+    tupdates._last_reduce_path.clear()
+    app, data, got, want = _run_both("resize", monkeypatch, **kw)
+    paths = {k: v - before.get(k, 0)
+             for k, v in eval_torch.reduce_paths.items()
+             if v != before.get(k, 0)}
+    assert paths == {k: v for k, v in (("reduce", 4 - einsums),
+                                       ("einsum", einsums)) if v}
+    assert tupdates._last_reduce_path == {}
+    jax_einsums = [ok for name, ok in tries if name == "try_einsum_reduce"]
+    assert ("try_conv_reduce", True) not in tries
+    assert len(jax_einsums) == 4 and sum(jax_einsums) == einsums
+    _compare(app, got, want)
+    _compare(app, got, app.reference(**data))
+
+
+def test_lens_blur_stochastic_against_jax(monkeypatch):
+    """blur_radius_scale 0.5: the aperture samples come from random_float,
+    which the port draws as the JAX package does, bit for bit, so the
+    stochastic output meets the JAX app's within the app's tolerance
+    (1e-4); and the structural checks of tests/test_apps.py:123. Its
+    `bokeh_w += 1.0` scatter adds whole numbers below 2^24 in f32: exact
+    in any order."""
+    app, data, got, want = _run_both("lens_blur", monkeypatch,
+                                     **dict(LENS_SMALL,
+                                            blur_radius_scale=0.5))
+    assert app.reference(**data) is None
+    assert got.shape == (3, 40, 48) and np.isfinite(got).all()
+    assert got.min() >= 0.0 and got.max() <= 255.0
+    _compare(app, got, want)
+
+
+def test_last_image_apps_default_schedules():
+    """The JAX apps' defaults as keyword arguments: compositing and
+    bilateral_grid tiled where the sizes divide (256x128 and 512x256),
+    bgu tiled 512x256 clamped to the extent (with a floor of 8); else
+    compositing untiled and bilateral_grid's slice at root."""
+    from halide_tpu_torch.apps import bgu, bilateral_grid, compositing
+    assert gk.find_tile(compositing.build().pipeline.outputs[0]) == (
+        "x", 256, "y", 128)
+    assert gk.find_tile(compositing.build(kernel=False)
+                        .pipeline.outputs[0]) is None
+    assert gk.find_tile(compositing.build(64, 48).pipeline.outputs[0]) \
+        is None
+    assert gk.find_tile(bilateral_grid.build().pipeline.outputs[0]) == (
+        "x", 512, "y", 256)
+    assert gk.find_tile(bilateral_grid.build(64, 48)
+                        .pipeline.outputs[0]) is None
+    assert gk.find_tile(bgu.build(width=128, height=96).pipeline
+                        .outputs[0]) == ("x", 128, "y", 96)
+    assert gk.find_tile(bgu.build(tile=None).pipeline.outputs[0]) is None
+
+
+def _fractional_slice(m):
+    """tests/test_correctness_misc.py:352: a table read at a data-dependent
+    index i and i + 1, i clamped to [0, 3] (reaching its last plane), with
+    a fractional weight. -> the output."""
+    x, z = m.Var("x"), m.Var("z")
+    tbl = m.Func("fs_tbl")
+    tbl[z] = m.f32(z) * 10.0
+    tbl.compute_root()
+    vals = np.array([0.25, 1.5, 3.5, 3.75, 2.0], np.float32)
+    inp = m.Buffer(torch.from_numpy(vals) if m.__name__ ==
+                   "halide_tpu_torch" else vals)
+    f = m.Func("fs_out")
+    iv = m.clamp(m.i32(inp[x]), 0, 3)
+    w = inp[x] - m.f32(m.i32(inp[x]))
+    f[x] = (1.0 - w) * tbl[iv] + w * tbl[iv + 1]
+    kw = {"device": "cpu"} if m.__name__ == "halide_tpu_torch" else {}
+    return np.asarray(f.realize([5], **kw).to_numpy()), vals
+
+
+def test_fractional_slice_top_plane_clamps():
+    """The read at i + 1 keeps its term where i reaches the table's last
+    selectable plane: the port equals numpy and the JAX package."""
+    import halide_tpu as hl
+    import halide_tpu_torch as ht
+    got, vals = _fractional_slice(ht)
+    want, _ = _fractional_slice(hl)
+    ivn = np.clip(vals.astype(np.int32), 0, 3)
+    wn = vals - vals.astype(np.int32)
+    ref = (1 - wn) * (ivn * 10.0) + wn * ((ivn + 1) * 10.0)
+    np.testing.assert_allclose(got, ref.astype(np.float32), rtol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
