@@ -83,7 +83,23 @@ Then it drives the port's main paths through `App.bind` /
   against each other (their float scatters add in any order); resize
   (scale 0.5) and lens_blur (192x320) whole-array against their goldens
   (lens_blur's stochastic default by its structure, its zero-radius case
-  within 1e-4), with the lowering of their sums.
+  within 1e-4), with the lowering of their sums;
+- then the `slice3_surface` phase, the surface around realize at the
+  canonical sizes: unsharp under a `specialize` ladder on a Param (its
+  tiled branch one K1 launch, its default none, each against its golden
+  and timed in turns beside the same schedule put on without a ladder);
+  camera_pipe (2560x1920 at 256x64), iir_blur and hist written by the
+  serializer, read back and realized bit for bit with the same launches
+  (K1, K2a, K3) and the same K1 plan geometry; blur (2560x1536, 256x128)
+  under `trace_all`, then traced to a file (the events per Func, the
+  stored payload equal to the output, the file's size); local_laplacian
+  profiled in both modes (the fused total within 2x of the realize);
+  camera_pipe with its tone curve computed at root and memoized (the
+  second realize a hit in the native LRU, both bit for bit the inline
+  curve's output; the miss, hit and key-hashing times); blur over an
+  extern stage that makes its input on the host (through K1, against its
+  golden, with the round trip's copy times); and a `debug_to_file` dump
+  of blur's compute_root producer, equal to it.
 
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan, and
@@ -952,6 +968,322 @@ def slice2_apps(app_co, app_bg, app_bgu, data, card, k1_row, flush):
          for k, r in rows.items()}))
 
 
+# ---------------------------------------------------------------------------
+# slice3_surface: the pipeline's surface around realize
+# ---------------------------------------------------------------------------
+
+def spec_unsharp(width, height, tile):
+    """unsharp with a specialization ladder on a Param `tiled`: where it is
+    >= 1, the output is tiled by `tile` and its wide producers computed at
+    its tiles (the schedule `apps.tile_producers` puts on); else the app's
+    default schedule, whole-array. -> (App, the Param)."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.apps import TILED_PRODUCERS, unsharp
+    app = unsharp.build(width, height)
+    out = app.pipeline.outputs[0]
+    funcs = {f.name: f for f in ht.pipeline.gather_graph([out]).funcs}
+    p = ht.Param(ht.Int(32), "tiled", 0)
+    x, y = out.args()[:2]
+    xo, yo, xi, yi = ht.Var("xo"), ht.Var("yo"), ht.Var("xi"), ht.Var("yi")
+    out.specialize(p._to_expr() >= 1).tile(x, y, xo, yo, xi, yi, *tile)
+    for name in TILED_PRODUCERS["unsharp"]:
+        funcs[name].specialize(p._to_expr() >= 1).compute_at(out, xo)
+    return app, p
+
+
+def deserialized(app):
+    """`app` with its pipeline written by the serializer and read back:
+    new Funcs, ImageParams and Params, bound by name from the same numpy
+    inputs. -> (App over the read-back pipeline, the text)."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.apps import App
+    text = ht.serialize_pipeline(app.pipeline)
+    pipe, images, params = ht.deserialize_pipeline(text)
+    new = App(f"{app.name}_read_back", pipe,
+              list(images.values()) + list(params.values()),
+              app.make_inputs, app.reference, app.output_sizes,
+              tolerance=app.tolerance, atol=app.atol,
+              mismatch_frac=app.mismatch_frac)
+    return new, text
+
+
+def memo_camera_pipe(out_width, out_height, tile):
+    """camera_pipe's kernel branch with its tone curve `curve` (1,024 u8
+    entries, inline in the app) computed at root and memoized: the group's
+    `curved` member reads it as a window. -> App."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.apps import camera_pipe
+    app = camera_pipe.build(out_width, out_height, kernel=True, tile=tile)
+    funcs = {f.name: f for f in ht.pipeline.gather_graph(
+        app.pipeline.outputs).funcs}
+    funcs["curve"].compute_root().memoize()
+    return app
+
+
+def extern_blur(width, height, tile):
+    """blur (the README schedule, tiled `tile`) over an extern stage that
+    produces its input on the host: the input xor 0x1234, in u16. ->
+    (pipeline, the ImageParam the extern reads, the golden of numpy
+    inputs)."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.apps import blur
+    x, y = ht.Var("x"), ht.Var("y")
+    xo, yo, xi, yi = ht.Var("xo"), ht.Var("yo"), ht.Var("xi"), ht.Var("yi")
+    raw = ht.ImageParam(ht.UInt(16), 2, "raw")
+    src = ht.Func("blur_src")
+    src.define_extern("blur_src", lambda a: np.bitwise_xor(a, 0x1234),
+                      [raw], output_type=ht.UInt(16), dimensions=2)
+    blur_x, blur_y = ht.Func("blur_x"), ht.Func("blur_y")
+    blur_x[x, y] = (src[x, y] + src[x + 1, y] + src[x + 2, y]) / 3
+    blur_y[x, y] = (blur_x[x, y] + blur_x[x, y + 1] + blur_x[x, y + 2]) / 3
+    blur_y.tile(x, y, xo, yo, xi, yi, *tile).vectorize(xi).parallel(yo)
+    blur_x.compute_at(blur_y, xo)
+    ref = blur.build(width, height).reference
+
+    def golden(a):
+        return ref(np.bitwise_xor(a, np.uint16(0x1234)))
+    return ht.Pipeline(blur_y), raw, golden
+
+
+def read_trace(path):
+    """The packets of a trace file: [(event, name, payload bytes)]."""
+    raw = open(path, "rb").read()
+    out, off = [], 0
+    while off < len(raw):
+        hdr = np.frombuffer(raw[off:off + 56], np.uint32)
+        assert hdr[0] == 0x48545243, "bad packet magic"
+        n_name, n_pay = int(hdr[2]), int(hdr[3])
+        name = raw[off + 56:off + 56 + n_name].decode()
+        pay = raw[off + 56 + n_name:off + 56 + n_name + n_pay]
+        out.append((int(hdr[1]), name, pay))
+        off += 56 + n_name + n_pay
+    return out
+
+
+def slice3_surface(card, timer, dev, sizes, apps):
+    """The phase of the surface around realize, at the canonical sizes
+    (`sizes`): specialize, serialize, trace, profile, memoize, an extern
+    stage and debug_to_file, each on the port's entry points with every
+    kernel count at 0 just before and read just after; `timer(fn, n)` is
+    the median of n timed calls (CUDA events on the card). Fails the run
+    on any disagreement. -> a dict of the numbers it prints."""
+    import tempfile
+
+    import halide_tpu_torch as ht
+    from halide_tpu_torch import pipeline as tp
+    from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    from halide_tpu_torch.ops import scan_kernel as sk
+    from halide_tpu_torch.runtime import memo_cache
+    from halide_tpu_torch.trace import tracing
+    out = {}
+
+    def counts0():
+        gk.launches = rk.launches = 0
+        sk.launches["const"] = sk.launches["general"] = 0
+        gk.rejects.clear()
+
+    def counts():
+        sync()
+        return {"K1": gk.launches, "K2a": sk.launches["const"],
+                "K2b": sk.launches["general"], "K3": rk.launches,
+                "rejects": dict(gk.rejects)}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def fail(msg):
+        raise SystemExit(f"slice3_surface: {msg}")
+
+    # specialize: the tiled branch through K1, the other whole-array; each
+    # timed in turns beside the same schedule put on without a ladder
+    app_s, p_s = apps["spec"]
+    golden = app_s.reference(**apps["spec_data"])
+    for tiled, same in ((1, apps["spec_tiled"]), (0, apps["spec_default"])):
+        p_s.set(tiled)
+        counts0()
+        got = app_s.realize(dev)
+        n = counts()
+        check_golden(f"unsharp specialized tiled={tiled}", got.to_numpy(),
+                     golden, app_s.tolerance, app_s.atol)
+        if n["K1"] != tiled or n["rejects"]:
+            fail(f"unsharp tiled={tiled}: launches {n}")
+        ms = [timer(lambda a=a: a.realize(dev), 10)
+              for a in (same, app_s, app_s, same)]
+        out[f"spec_tiled{tiled}_ms"] = (ms[1] + ms[2]) / 2
+        out[f"spec_tiled{tiled}_no_ladder_ms"] = (ms[0] + ms[3]) / 2
+        say(f"unsharp 1536x2560x3, specialize(tiled >= 1), tiled={tiled}: "
+            f"counts {n}; realize {ms[1]:.4f}, {ms[2]:.4f} ms, the same "
+            f"schedule without a ladder {ms[0]:.4f}, {ms[3]:.4f} ms (in "
+            f"turns) on {card}")
+
+    # serialize: read back, realize, the same bits, kernels and plan
+    for app, rb, data, kern in apps["serial"]:
+        counts0()
+        gk.last_plan = None
+        want = app.realize(dev).to_numpy()
+        n0, plan0 = counts(), gk.last_plan
+        gk.last_plan = None
+        rb.bind(data, dev)
+        counts0()
+        got = rb.realize(dev).to_numpy()
+        n1, plan1 = counts(), gk.last_plan
+        same = got.dtype == want.dtype and np.array_equal(got, want)
+        # the plan's geometry; its op count ("model") is the source's, and
+        # the reader merges equal subtrees that the original built apart
+        geo0, geo1 = ({k: v for k, v in (q or {}).items() if k != "model"}
+                      for q in (plan0, plan1))
+        ops = [q and q["model"]["ops_per_out"] for q in (plan0, plan1)]
+        say(f"{app.name} read back from its text: bit for bit {same}; "
+            f"counts {n1} (the original's {n0}); K1 plan geometry the same "
+            f"{geo1 == geo0} ({geo1.get('sub_tile')}, "
+            f"{geo1.get('threads')} threads, grid {geo1.get('grid')}); "
+            f"operations an output {ops[1]} (the original's {ops[0]})")
+        if not same or n1 != n0 or n1[kern] < 1 or geo1 != geo0:
+            fail(f"{app.name}: the read-back pipeline differs")
+        out[f"serial_{app.name}_ms"] = timer(lambda: rb.realize(dev), 5)
+
+    # trace: blur under trace_all (every Func armed), then to a file
+    app_t = apps["trace"]
+    target = "cuda-sm_90-trace_all" if dev.type == "cuda" else \
+        "cpu-trace_all"
+    counts0()
+    app_t.pipeline.realize(app_t.output_sizes, target=target, device=dev)
+    n = counts()
+    if n["K1"] != 1:
+        fail(f"blur under trace_all: counts {n}")
+    base_ms = timer(lambda: app_t.realize(dev), 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/blur.trace"
+        with tracing(app_t.pipeline, file=path) as t:
+            counts0()
+            got = app_t.realize(dev).to_numpy()
+            n = counts()
+            tr_ms = timer(lambda: app_t.realize(dev), 10)
+        packets = read_trace(path)
+        size = len(open(path, "rb").read())
+    first = [pk for pk in packets[:3]]
+    want_ev = {("begin_realization", "blur_y"): 12,
+               ("store", "blur_y"): 12, ("end_realization", "blur_y"): 12}
+    want_size = 12 * (3 * (56 + len("blur_y")) + got.nbytes)
+    ok = (t.counts() == want_ev and n["K1"] == 1
+          and [pk[0] for pk in first] == [2, 1, 3]
+          and first[1][2] == got.tobytes() and size == want_size)
+    say(f"blur 2560x1536 traced to a file: events {t.counts()} (11 of them "
+        f"from the timed calls), counts {n}, store payload equal to the "
+        f"output {first[1][2] == got.tobytes()}, file {size} bytes "
+        f"(expected {want_size}); realize {base_ms:.4f} ms untraced, "
+        f"{tr_ms:.4f} ms traced with payloads, on {card}")
+    if not ok:
+        fail("the trace's events, payload or size are wrong")
+    out.update(trace_off_ms=base_ms, trace_on_ms=tr_ms, trace_bytes=size)
+
+    # profile: local_laplacian, both modes
+    app_l = apps["profile"]
+    r_ms = timer(lambda: app_l.realize(dev), 5)
+    t0 = time.perf_counter()
+    rep_s = app_l.pipeline.profile(app_l.output_sizes, device=dev)
+    s_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts0()
+    rep_f = app_l.pipeline.profile(app_l.output_sizes, mode="fused",
+                                   device=dev)
+    f_s = time.perf_counter() - t0
+    n = counts()
+    top_s = sorted(rep_s["funcs"], key=lambda e: -e["ms"])[:5]
+    top_f = sorted(rep_f["funcs"], key=lambda e: -e["ms"])[:5]
+    say(f"local_laplacian profile on {card}: stages total "
+        f"{rep_s['total_ms']:.4f} ms over {len(rep_s['funcs'])} stages "
+        f"(the profile took {s_s:.2f} s), top "
+        + "; ".join(f"{e['name']} {e['ms']:.4f} ms" for e in top_s))
+    say(f"local_laplacian fused profile on {card}: total "
+        f"{rep_f['total_ms']:.4f} ms (the realize by CUDA events "
+        f"{r_ms:.4f} ms; the profile took {f_s:.2f} s, counts {n}), top "
+        + "; ".join(f"{e['name']} {e['ms']:.4f} ms" for e in top_f))
+    cums = [e["cum_ms"] for e in rep_f["funcs"]]
+    if not (r_ms / 2 <= rep_f["total_ms"] <= 2 * r_ms) or n["K1"] < 1 \
+            or any(e["ms"] < 0 for e in rep_f["funcs"]) \
+            or rep_f["total_ms"] != cums[-1]:
+        fail("the fused profile's total is not within 2x of the realize")
+    out.update(profile_stages_ms=rep_s["total_ms"],
+               profile_fused_ms=rep_f["total_ms"], profile_realize_ms=r_ms,
+               profile_stages_s=s_s, profile_fused_s=f_s)
+
+    # memoize: camera_pipe's tone curve from the native LRU, against the
+    # same app with its curve inline (held against its golden, bit for bit,
+    # in phase camera_pipe)
+    app_m, same = apps["memo"], apps["memo_same"]
+    want = same.realize(dev).to_numpy()
+    memo_cache().clear()
+    res = []
+    for attempt in ("miss", "hit"):
+        st0 = memo_cache().stats()
+        counts0()
+        sync()
+        t0 = time.perf_counter()
+        got = app_m.realize(dev).to_numpy()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        st1 = memo_cache().stats()
+        res.append((got, ms, dict(tp.last_memo), counts(),
+                    st1["hits"] - st0["hits"]))
+        say(f"camera_pipe with a memoized curve, {attempt}: realize "
+            f"{ms:.4f} ms (host clock, to completion), key hashing "
+            f"{tp.last_memo['key_s'] * 1e3:.4f} ms, {tp.last_memo}, counts "
+            f"{res[-1][3]}, on {card}")
+    (g0, ms0, m0, n0, h0), (g1, ms1, m1, n1, h1) = res
+    say(f"camera_pipe with a memoized curve against the inline curve: bit "
+        f"for bit {np.array_equal(g0, want)}, {np.array_equal(g1, want)}")
+    if not (np.array_equal(g0, want) and np.array_equal(g1, want)
+            and m0["misses"] == ["curve"] and m1["hits"] == ["curve"]
+            and h1 > 0 and np.array_equal(g0, g1) and n0["K1"] == 1
+            and n1["K1"] == 1):
+        fail("the second realize is not a hit equal to the first")
+    out.update(memo_miss_ms=ms0, memo_hit_ms=ms1,
+               memo_key_ms=m1["key_s"] * 1e3)
+
+    # an extern stage produces blur's input; K1 consumes it
+    pipe_e, raw_e, golden_e, data_e = apps["extern"]
+    raw_e.set(torch.from_numpy(data_e).to(dev))
+    counts0()
+    got = pipe_e.realize(sizes["blur"], device=dev).to_numpy()
+    n = counts()
+    rt = dict(tp.last_extern)
+    check_golden("blur over an extern input", got, golden_e(data_e), 0, 0)
+    if n["K1"] != 1 or n["rejects"]:
+        fail(f"blur over the extern stage: counts {n}")
+    say(f"extern stage -> blur 2560x1536 u16 through K1: counts {n}; host "
+        f"round trip: {rt['bytes_out']} bytes off the card in "
+        f"{rt['copy_out_s'] * 1e3:.4f} ms, callback "
+        f"{rt['callback_s'] * 1e3:.4f} ms, {rt['bytes_in']} bytes back in "
+        f"{rt['copy_in_s'] * 1e3:.4f} ms, on {card}")
+    out.update(extern_copy_out_ms=rt["copy_out_s"] * 1e3,
+               extern_callback_ms=rt["callback_s"] * 1e3,
+               extern_copy_in_ms=rt["copy_in_s"] * 1e3)
+
+    # debug_to_file: blur's compute_root producer, dumped
+    app_d, data_d = apps["debug"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/blur_x.npy"
+        bx = next(f for f in ht.pipeline.gather_graph(
+            app_d.pipeline.outputs).funcs if f.name == "blur_x")
+        bx.compute_root().debug_to_file(path)
+        counts0()
+        got = app_d.realize(dev).to_numpy()
+        dumped = np.load(path)
+        bx.debug_to_file(None)
+    a = data_d["input"].astype(np.uint16)
+    want = (a[:, :-2] + a[:, 1:-1] + a[:, 2:]) // 3
+    check_golden("blur with a dump", got, app_d.reference(**data_d), 0, 0)
+    ok = dumped.dtype == want.dtype and np.array_equal(dumped, want)
+    say(f"blur_x (compute_root) dumped by debug_to_file: {dumped.shape} "
+        f"{dumped.dtype}, equal to blur_x {ok}")
+    if not ok:
+        fail("the debug_to_file dump differs from the stage")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
     """One row of the kernel table. `ops` is (f32, integer) operations:
@@ -1022,6 +1354,18 @@ def main():
     app_bgu = bgu.build(1536, 2560)
     app_unt = unsharp.build(1536, 2560)
     app_hrt = harris.build(1536, 2560)
+    # slice3_surface's pipelines: unsharp under a specialization ladder
+    # (planned on its tiled branch), camera_pipe with a memoized tone
+    # curve, blur over an extern stage, blur to be traced and blur with a
+    # dumped producer
+    app_sp, p_sp = spec_unsharp(1536, 2560, (256, 128))
+    app_cm = memo_camera_pipe(2560, 1920, (256, 64))
+    pipe_e, raw_e, golden_e = extern_blur(2560, 1536, (256, 128))
+    data_e = blur.build(2560, 1536).make_inputs(0)["input"]
+    app_e = App("extern_blur", pipe_e, [raw_e], lambda seed=0: {},
+                golden_e, [2558, 1534])
+    app_tr = blur.build(2560, 1536, tile=(256, 128))
+    app_dbg = blur.build(2560, 1536)
     for app in (app_unt, app_hrt):
         tile_producers(ht, app.pipeline, (256, 128),
                        TILED_PRODUCERS[app.name])
@@ -1044,13 +1388,18 @@ def main():
     data = {}
     apps = [app_b, app_l, app_p, app_ll, app_s, app_sl, app_c, app_c64,
             app_un, app_hr, app_wv, app_unt, app_hrt, app_nl, app_co, app_bg,
-            app_bgu]
+            app_bgu, app_sp, app_cm, app_tr, app_dbg]
     for app in apps:
         data[id(app)] = app.make_inputs(0)
         app.bind(data[id(app)])            # onto the card
+    raw_e.set(torch.from_numpy(data_e).cuda())
+    app_rb, _text = deserialized(app_c64)  # camera_pipe read back
+    app_rb.bind(data[id(app_c64)])
+    p_sp.set(1)                            # the tiled branch
     plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
                          app_c64, app_8, app_unt, app_hrt, app_nl, app_co,
-                         app_bg, app_bgu]
+                         app_bg, app_bgu, app_sp, app_cm, app_e, app_tr,
+                         app_rb]
                         + list(apps_in.values()) + list(apps_h.values()))
     # the carried groups planned again with no carry, at the same sub-tile
     # and threads and at the rule's own: built with the rest, timed beside
@@ -1662,6 +2011,25 @@ def main():
     # band), resize and lens_blur whole-array
     phase("slice2_apps")
     slice2_apps(app_co, app_bg, app_bgu, data, card, k1_row, flush)
+
+    # the surface around realize: specialize, serialize, trace, profile,
+    # memoize, an extern stage and debug_to_file
+    phase("slice3_surface")
+    app_ib, _t = deserialized(app_i)
+    app_hb, _t = deserialized(app_h)
+    surface = slice3_surface(
+        card, lambda fn, n: event_ms(fn, n, flush), torch.device("cuda"),
+        {"blur": [2558, 1534]},
+        {"spec": (app_sp, p_sp), "spec_data": data[id(app_sp)],
+         "spec_tiled": app_unt, "spec_default": app_un,
+         "serial": [(app_c64, app_rb, data[id(app_c64)], "K1"),
+                    (app_i, app_ib, data_i, "K2a"),
+                    (app_h, app_hb, data_h, "K3")],
+         "trace": app_tr, "profile": app_ll, "memo": app_cm,
+         "memo_same": app_c64,
+         "extern": (pipe_e, raw_e, golden_e, data_e),
+         "debug": (app_dbg, data[id(app_dbg)])})
+    say(f"slice3_surface on {card}: " + json.dumps(surface))
 
     phase("kernels")
     signal.alarm(0)

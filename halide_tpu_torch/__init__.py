@@ -10,8 +10,11 @@ What is ported: the front end, `Pipeline.realize`, whole-array evaluation
 (eval_torch) with inline reductions and the convolution and einsum
 contraction paths, the stencil-group kernel (ops/group_kernel), update
 definitions (updates) with the scan kernel (ops/scan_kernel) and the
-row-histogram kernel (ops/rowhist_kernel), rfactor, and the print/error
-hooks.
+row-histogram kernel (ops/rowhist_kernel), rfactor, the print/error
+hooks, and the surface around realize: specialize, wrapper Funcs, extern
+stages, compile_to_callable, infer_input_bounds, serialization, tracing
+(trace), the profile, memoize on the native host runtime (runtime),
+debug_to_file, the loop nest (loopnest) and the HTML report (report).
 Realize runs on the card unless the caller passes device="cpu".
 """
 import sys as _sys
@@ -58,3 +61,6 @@ __all__ = [
     "mirror_interior", "BoundaryConditions",
     "set_custom_print", "set_error_handler",
 ] + list(_irop_all)
+
+from .serialize import serialize_pipeline, deserialize_pipeline  # noqa: E402
+__all__ += ["serialize_pipeline", "deserialize_pipeline"]

@@ -126,13 +126,14 @@ class Realized:
 class Ctx:
     """An evaluation context. `fold`: inline reductions fold point by point
     in RDom order, r.x innermost, with no contraction path (K1's plain
-    version, which must sum in the kernel's order)."""
+    version, which must sum in the kernel's order). `trace`: the
+    pipeline's Trace, which records each print's value."""
     __slots__ = ("ndim", "axes", "bindings", "realizations", "params",
-                 "device", "memo", "fold")
+                 "device", "memo", "fold", "trace")
 
     def __init__(self, ndim: int, axes: Dict[str, Axis], bindings: dict,
                  realizations: Dict[int, Realized], params: dict,
-                 device="cpu", fold: bool = False):
+                 device="cpu", fold: bool = False, trace=None):
         self.ndim = ndim
         self.axes = axes
         self.bindings = bindings
@@ -141,10 +142,11 @@ class Ctx:
         self.device = torch.device(device)
         self.memo: dict = {}
         self.fold = fold
+        self.trace = trace
 
     def with_bindings(self, bindings: dict) -> "Ctx":
         return Ctx(self.ndim, self.axes, bindings, self.realizations,
-                   self.params, self.device, self.fold)
+                   self.params, self.device, self.fold, self.trace)
 
     def extended(self, new_axes: List[Axis]) -> "Ctx":
         """This context with `new_axes` (an update's rdom axes) added, so
@@ -154,7 +156,7 @@ class Ctx:
             axes[a.name] = a
         ndim = max([self.ndim] + [a.rpos + 1 for a in new_axes])
         return Ctx(ndim, axes, self.bindings, self.realizations, self.params,
-                   self.device, self.fold)
+                   self.device, self.fold, self.trace)
 
 
 def _shape_at(ctx_ndim: int, rpos: int, extent: int) -> Tuple[int, ...]:
@@ -915,11 +917,14 @@ def _host(v: torch.Tensor, t: Type):
 def _print(e: E.Intrin, ctx: Ctx):
     """print: the value passes through, and its summary with the string
     arguments goes through hooks.halide_print; print_when prints the
-    values where the condition holds, where it holds anywhere."""
+    values where the condition holds, where it holds anywhere. Under a
+    trace, each print also records its value (`Trace.emit_print`)."""
     from . import hooks
     idx = 0 if e.name == "print" else 1
     val = evaluate(e.args[idx], ctx)
     vn = _host(materialize(val, ctx), e.args[idx].dtype)
+    if ctx.trace is not None:
+        ctx.trace.emit_print(vn)
     if e.name == "print":
         strs = [a.value if isinstance(a, E.StringImm) else a
                 for a in e.args[1:] if isinstance(a, (E.StringImm, str))]

@@ -360,11 +360,12 @@ class Stage:
         return self
 
     def specialize(self, cond):
-        raise NotImplementedError("specialize comes in slice 3 of the port")
+        from .specialize import add_specialization
+        return add_specialization(self.func, self.index, cond)
 
     def specialize_fail(self, msg: str):
-        raise NotImplementedError("specialize_fail comes in slice 3 of the "
-                                  "port")
+        from .specialize import add_specialize_fail
+        add_specialize_fail(self.func, self.index, msg)
 
     # GPU directives accepted for ported schedules; mapped to grid concepts.
     def gpu_blocks(self, *vars, **kw) -> "Stage":
@@ -594,10 +595,12 @@ class Func:
     def in_(self, consumers=None) -> "Func":
         """Wrapper func (reference: src/Func.h:1404-1464). Global form only:
         creates g with g(vars) = f(vars) and redirects all existing consumers."""
-        raise NotImplementedError("wrapper Funcs come in slice 3 of the port")
+        from .wrappers import make_wrapper
+        return make_wrapper(self, consumers)
 
     def clone_in(self, consumers) -> "Func":
-        raise NotImplementedError("wrapper Funcs come in slice 3 of the port")
+        from .wrappers import make_wrapper
+        return make_wrapper(self, consumers, clone=True)
 
     def copy_to_device(self, *a, **kw) -> "Func":
         return self
@@ -701,8 +704,8 @@ class Func:
     # ---- multi-chip -------------------------------------------------------
     def distribute(self, var, axis_name: str = "devices") -> "Func":
         """Shard this (output) Func's `var` dimension across devices. The
-        directive is recorded; the multi-device realize comes in slice 3
-        of the port."""
+        directive is recorded; the multi-device realize comes with
+        ROADMAP queue 1, item 17 (parallel/distribute)."""
         name = var.name if hasattr(var, "name") else str(var)
         is_pure = any(v.name == name for v in self._args)
         is_rvar = any(
@@ -747,8 +750,8 @@ class Func:
         return self
 
     def print_loop_nest(self) -> None:
-        raise NotImplementedError("print_loop_nest comes in slice 3 of the "
-                                  "port")
+        from .loopnest import print_loop_nest
+        print_loop_nest(self)
 
     # ---- stage-0 delegation -----------------------------------------------
     def __getattr__(self, item):
@@ -771,8 +774,8 @@ class Func:
         """Define this Func as an extern stage (reference:
         src/Function.h:247 define_extern + the bounds-query protocol,
         BoundsInference.cpp:452-506). `callback(*input_np_arrays) ->
-        np_array` runs on the host (realizing an extern stage comes in
-        slice 3 of the port);
+        np_array` runs on the host: each cropped input is copied off the
+        realize's device to numpy, and the result is copied back onto it;
         `footprint(output_box) -> [input_boxes]` is the analog of the
         null-host bounds query (defaults to passing the output box
         through); `bounds_query(output_box) -> Box` lets the stage ROUND UP

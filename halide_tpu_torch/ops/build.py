@@ -1,11 +1,14 @@
-"""The one build route of the port's CUDA kernels: `nvcc` -> a shared
+"""The one build route of the port's compiled code: a compiler -> a shared
 library with a plain C interface -> `ctypes`.
 
-No source includes PyTorch's headers, so a build takes seconds. Each source
-is built once into `build/kernels/<key>.so` (git-ignored) for Hopper
-(`sm_90a`); the key names the source's content, so an edited source builds
-anew. A build or load failure raises with nvcc's stderr: the port never
-falls back from a kernel to another route.
+The CUDA kernels go through `nvcc` (`load`); the native host runtime
+(runtime/native/ht_runtime.cpp, the trace writer and the memo cache) goes
+through `g++` (`load_host`). No source includes PyTorch's headers, so a
+build takes seconds. Each source is built once into `build/kernels/<key>.so`
+(git-ignored), a kernel for Hopper (`sm_90a`); the key names the source and
+its content, so an edited source builds anew, and a host build's key starts
+with `host_`, so it never meets a kernel's. A build or load failure raises
+with the compiler's stderr: the port never falls back to another route.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, List, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_TIMEOUT_S = 180
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
@@ -48,31 +52,54 @@ def load(key: str, cu: Path) -> ctypes.CDLL:
     lib = _LIBS.get(key)
     if lib is not None:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{key}.so"
     if not so.exists():
-        tmp = BUILD_DIR / f"{key}.{os.getpid()}.so"
-        cmd = [nvcc()] + NVCC_FLAGS + ["-I", str(CSRC), "-o", str(tmp),
-                                       str(cu)]
-        t0 = time.time()
-        r = subprocess.run(cmd, capture_output=True, text=True,
-                           timeout=NVCC_TIMEOUT_S)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {cu} (exit {r.returncode}):\n{r.stderr}")
+        r = _compile(key, [nvcc()] + NVCC_FLAGS + ["-I", str(CSRC)], cu)
         so.with_suffix(".ptxas").write_text("\n".join(
             ln.split(":", 1)[-1].strip() for ln in r.stderr.splitlines()
             if "Used" in ln or "spill" in ln or "Compiling entry" in ln))
-        os.replace(tmp, so)
-        builds.append((key, time.time() - t0))
     if key not in ptxas and so.with_suffix(".ptxas").exists():
         ptxas[key] = so.with_suffix(".ptxas").read_text().splitlines()
+    return _open(key, so)
+
+
+def _compile(key: str, cmd: List[str], src: Path):
+    """Run the compiler `cmd` on `src` into BUILD_DIR/<key>.so (written
+    under a temporary name first, so that concurrent builds never load a
+    half-written library); raises with its stderr on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{key}.{os.getpid()}.so"
+    t0 = time.time()
+    r = subprocess.run(cmd + ["-o", str(tmp), str(src)], capture_output=True,
+                       text=True, timeout=NVCC_TIMEOUT_S)
+    if r.returncode != 0:
+        raise RuntimeError(
+            f"{cmd[0]} failed on {src} (exit {r.returncode}):\n{r.stderr}")
+    os.replace(tmp, BUILD_DIR / f"{key}.so")
+    builds.append((key, time.time() - t0))
+    return r
+
+
+def _open(key: str, so: Path) -> ctypes.CDLL:
     try:
         lib = ctypes.CDLL(str(so))
     except OSError as ex:
         raise RuntimeError(f"cannot load {so}: {ex}") from ex
     _LIBS[key] = lib
     return lib
+
+
+def load_host(src: Path) -> ctypes.CDLL:
+    """g++ the host source `src` into BUILD_DIR/host_<name>_<hash>.so (once
+    per content) and load it."""
+    key = source_key(f"host_{src.stem}", src.read_text())
+    lib = _LIBS.get(key)
+    if lib is not None:
+        return lib
+    so = BUILD_DIR / f"{key}.so"
+    if not so.exists():
+        _compile(key, [shutil.which("g++") or "g++"] + GXX_FLAGS, src)
+    return _open(key, so)
 
 
 _FIXED: Dict[str, ctypes.CDLL] = {}

@@ -191,6 +191,10 @@ from . import build as _build
 launches = 0                               # kernel launches on a CUDA tensor
 rejects: collections.Counter = collections.Counter()   # reason -> count
 last_plan: Optional[dict] = None           # the most recent group's plan
+# per consumer name, its last plan's record or its last reject reason (the
+# pipeline report's lowering line)
+plans_by_name: Dict[str, dict] = {}
+rejects_by_name: Dict[str, str] = {}
 builds = _build.builds                     # (library key, nvcc seconds)
 
 # the planner's search: sub-tiles up to these, threads a block among these,
@@ -269,7 +273,7 @@ def group_members(f: Func, graph) -> List[Func]:
 
 
 def _is_inline(t) -> bool:
-    if not isinstance(t, Func):
+    if not isinstance(t, Func) or t.is_extern():
         return False
     if len(t._defs) > 1 or len(t._defs[0].values) > 1:
         return False
@@ -1318,12 +1322,15 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
             plan = plan_group(f, box, ctx0, graph)
         except GroupUnsupported as ex:
             rejects[str(ex)] += 1
+            rejects_by_name[f.name] = str(ex)
+            plans_by_name.pop(f.name, None)
             cache[id(f)] = False
             return None
         cache[id(f)] = plan
     elif plan is False:
         return None
-    last_plan = plan.record()
+    last_plan = plans_by_name[f.name] = plan.record()
+    rejects_by_name.pop(f.name, None)
     inputs = [ctx0.realizations[id(w.target)].arrays[0]
               for w in plan.windows]
     real_mins = [ctx0.realizations[id(w.target)].mins for w in plan.windows]

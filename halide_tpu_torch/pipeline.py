@@ -14,13 +14,25 @@ src/Pipeline.cpp:512-1024, src/Lower.cpp:136-608). Lowering here is:
 5. cache the planned graph (bounds and group plans) per graph, sizes and
    bound inputs, so a repeated realize only executes
 
+Around that loop: specialization ladders resolved per realize (specialize),
+memoized stages fetched from the native LRU (runtime), extern stages run on
+the host, traces and debug_to_file dumps of what each stage produced, the
+target's features, and `profile`, `compile_to_callable` and
+`infer_input_bounds`.
+
 Everything runs on the realize device: the card unless the caller asks for
 the CPU. Where there is no card and none was asked for, realize raises.
+What goes to the host on the card: an extern stage's inputs and result, a
+memoized stage's inputs for its key (up to 8 MB each) and its value on a
+miss, a trace's store payloads, a debug_to_file dump, and a print's value.
 """
 from __future__ import annotations
 
+import hashlib
+import time
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from . import expr as E
@@ -29,10 +41,20 @@ from .buffer import Buffer, ImageParam, Param, Realization
 from .eval_torch import Axis, Ctx, Realized, eval_array, full_shape, static_int
 from .expr import CompileError, Expr
 from .func import Func
+from .hooks import to_numpy
 from .htypes import compute_dtype, torch_dtype
 from .visitors import walk
 
 __all__ = ["Pipeline", "resolve_device"]
+
+# the last realize's memo lookups: the seconds spent hashing the keys (the
+# sub-pipelines' inputs read back from the card), and the memoized Funcs
+# that hit and missed
+last_memo: dict = {}
+# the last extern stage's host round trip: seconds to copy its cropped
+# inputs off the device, to run its callback and to copy the result back,
+# and the bytes each way
+last_extern: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,6 +89,10 @@ def _all_def_exprs(f: Func):
                     yield rv.rmin
                 if rv.rextent is not None:
                     yield rv.rextent
+    # specialization conditions reference params/input dims that must enter
+    # the plan-cache key (they select the variant)
+    for s in f._specializations:
+        yield s.condition
 
 
 def _scan_expr_targets(e: Expr, on_func, on_input, on_param):
@@ -99,6 +125,8 @@ def gather_graph(outputs: List[Func]) -> _Graph:
     visiting: set = set()
 
     def want_materialize(f: Func) -> bool:
+        if f.is_extern():
+            return True
         lvl = f._fschedule.compute_level
         if lvl.is_inlined():
             if len(f._defs) > 1:
@@ -109,7 +137,7 @@ def gather_graph(outputs: List[Func]) -> _Graph:
             return True
         # defaults: inline pure single-value defs; materialize the rest
         return (len(f._defs) > 1 or len(f._defs[0].values) > 1
-                or f._fschedule.memoized
+                or f._fschedule.memoized or bool(f._specializations)
                 or any(d.schedule.fused_with for d in f._defs))
 
     def visit(f: Func):
@@ -117,13 +145,15 @@ def gather_graph(outputs: List[Func]) -> _Graph:
             return
         if id(f) in visiting:
             raise CompileError(f"cyclic func graph at {f.name}")
-        if f.is_extern():
-            raise NotImplementedError(
-                f"extern stage {f.name}: extern stages come in slice 3 of "
-                "the port")
         if not f.defined():
             raise CompileError(f"Func {f.name} is used before it is defined")
         visiting.add(id(f))
+        if f.is_extern():
+            for src in f._extern["inputs"]:
+                if isinstance(src, Func):
+                    visit(src)
+                else:
+                    g.inputs.setdefault(id(src), src)
         for e in _all_def_exprs(f):
             _scan_expr_targets(
                 e,
@@ -162,7 +192,8 @@ def _fusion_cliques(g: _Graph) -> Dict[int, List[Func]]:
             for (other, _var, *_align) in d.schedule.fused_with:
                 of = other[0] if isinstance(other, tuple) else other
                 if id(of) in by_id and id(f) in g.materialized \
-                        and id(of) in g.materialized:
+                        and id(of) in g.materialized \
+                        and not f.is_extern() and not of.is_extern():
                     ra, rb = find(id(f)), find(id(of))
                     if ra != rb:
                         parent[ra] = rb
@@ -257,6 +288,8 @@ class _BoundsPass:
 
     def _self_fixpoint(self, f: Func, box: Box):
         """Grow box[f] to cover its own updates' reads and writes."""
+        if f.is_extern():
+            return
         for _ in range(16):
             changed = False
             for d in f._defs[1:]:
@@ -280,6 +313,18 @@ class _BoundsPass:
         raise CompileError(f"{f.name}: self-bounds did not converge")
 
     def _footprints(self, f: Func, box: Box):
+        if f.is_extern():
+            # double bounds-query protocol (reference:
+            # BoundsInference.cpp:452-506): first let the stage round UP the
+            # output region it will actually produce, then size the inputs
+            # from that rounded region
+            bq = f._extern.get("bounds_query")
+            if bq is not None:
+                box.union(bq(Box(list(box.dims))))
+            for src, b2 in zip(f._extern["inputs"], _extern_boxes(f, box)):
+                self.boxes.setdefault(
+                    id(src), Box.empty(src.dimensions())).union(b2)
+            return
         for d in f._defs:
             scope = self._def_scope(f, d, box)
             exprs = list(d.values) + list(d.predicates) + [
@@ -325,6 +370,14 @@ class _BoundsPass:
             self._visit(c, scope, skip_self)
 
 
+def _extern_boxes(f: Func, box: Box) -> List[Box]:
+    """The boxes an extern stage reads of its inputs to produce `box`."""
+    fp = f._extern["footprint"]
+    if fp is not None:
+        return fp(Box(list(box.dims)))
+    return [Box(list(box.dims)) for _ in f._extern["inputs"]]
+
+
 def _find_calls_to(e: Expr, f: Func):
     out = []
 
@@ -346,6 +399,7 @@ class Pipeline:
             outputs = [outputs]
         self.outputs: List[Func] = list(outputs)
         self._plan_cache: Dict = {}
+        self.trace = None
 
     def _signature(self, g: _Graph) -> Tuple:
         sig = []
@@ -361,6 +415,7 @@ class Pipeline:
                             for dm in d.schedule.dims) for d in f._defs),
                 tuple((b.var, repr(b.min), repr(b.extent))
                       for b in fs.bounds),
+                fs.memoized, fs.debug_file,
             ))
         return tuple(sig)
 
@@ -397,16 +452,8 @@ class Pipeline:
             regions[id(f)] = box
         return regions
 
-    def realize(self, sizes=None, target=None, dst=None, device=None):
-        """Realize the outputs over `sizes` (or over `dst`'s region) on
-        `device`: None means the card, and raises where there is none.
-        `target` is checked but selects nothing in this slice."""
-        from .target import Target
-        if isinstance(target, str):
-            Target(target)
-        dev = resolve_device(device)
-        g = gather_graph(self.outputs)
-        regions = self._out_regions(sizes, dst)
+    def _inputs(self, g: _Graph):
+        """[(input, its Buffer)] of the graph; an unbound one raises."""
         input_objs = []
         for t in g.inputs.values():
             if isinstance(t, ImageParam):
@@ -416,42 +463,142 @@ class Pipeline:
             else:
                 raise CompileError(f"unbound input {t!r}")
             input_objs.append((t, buf))
+        return input_objs
+
+    def realize(self, sizes=None, target=None, dst=None, device=None,
+                custom_print=None, custom_error=None):
+        """Realize the outputs over `sizes` (or over `dst`'s region) on
+        `device`: None means the card, and raises where there is none.
+
+        `target` (a Target or its string) is read as the JAX package reads
+        it: `trace_all` arms a trace of every Func for this call,
+        `no_pallas` or `interpret` evaluate every group whole-array, and
+        `profile` prints `self.profile(...)` afterwards.
+
+        custom_print / custom_error: PER-CALL handler overrides --
+        installed for this realization only and restored on exit (the
+        reference's JITUserContext handler table,
+        src/runtime/HalideRuntime.h:178-196, installed per call at
+        Pipeline.cpp:818)."""
+        if custom_print is not None or custom_error is not None:
+            from . import hooks
+            prev_p = hooks.set_custom_print(custom_print) \
+                if custom_print is not None else None
+            prev_e = hooks.set_error_handler(custom_error) \
+                if custom_error is not None else None
+            try:
+                return self.realize(sizes, target, dst, device)
+            finally:
+                if custom_print is not None:
+                    hooks.set_custom_print(prev_p)
+                if custom_error is not None:
+                    hooks.set_error_handler(prev_e)
+        from .target import Target, get_jit_target_from_environment
+        if target is None:
+            target = get_jit_target_from_environment()
+        elif isinstance(target, str):
+            target = Target(target)
+        tr_installed = False
+        if target.has_feature("trace_all") and self.trace is None:
+            from .trace import Trace
+            for f in gather_graph(self.outputs).funcs:
+                f._fschedule.trace_realizations = True
+                f._fschedule.trace_stores = True
+            self.trace = Trace()
+            tr_installed = True
+        groups = not (target.has_feature("no_pallas")
+                      or target.has_feature("interpret"))
+        try:
+            arrays, regions = self._run(sizes, dst, device, groups)
+        finally:
+            if tr_installed:
+                self.trace = None
+        if target.has_feature("profile"):
+            print(self.profile(sizes, dst, device=device))
+        return self._package(arrays, regions, dst)
+
+    def _run(self, sizes, dst, device, groups: bool = True):
+        """Plan (or fetch from the plan cache) and run the pipeline.
+        -> (per output, a tuple of tensors; the requested regions)."""
+        from .specialize import apply_all, restore, select
+        dev = resolve_device(device)
+        g = gather_graph(self.outputs)
+        regions = self._out_regions(sizes, dst)
+        input_objs = self._inputs(g)
+        inp_arrays = [buf.data.to(dev) for (_, buf) in input_objs]
         param_vals = {id(p): p.get() for p in g.params.values()}
+        chosen = []
+        if any(f._specializations for f in g.funcs):
+            chosen = select(g, {
+                id(t): Realized((a,), buf._mins, getattr(t, "name", "buf"))
+                for (t, buf), a in zip(input_objs, inp_arrays)},
+                param_vals, dev)
+        # memoized stages come from the host LRU cache before the run
+        # (reference: src/Memoization.cpp + runtime/cache.cpp)
+        presets = self._memo_precompute(g, input_objs, param_vals, regions,
+                                        dev)
         key = (self._signature(g), str(dev),
                tuple((b.mins(), b.extents()) for b in regions.values()),
                tuple((tuple(buf.data.shape), buf.data.dtype, buf._mins)
                      for (_, buf) in input_objs),
-               tuple(sorted((k, repr(v)) for k, v in param_vals.items())))
+               tuple(sorted((k, repr(v)) for k, v in param_vals.items())),
+               id(self.trace) if self.trace is not None else 0,
+               tuple((f._fschedule.trace_stores,
+                      f._fschedule.trace_realizations) for f in g.funcs),
+               tuple(id(c) for c in chosen),
+               tuple((fid, mins, tuple((tuple(a.shape), a.dtype)
+                                       for a in arrs))
+                     for fid, (mins, arrs) in presets.items()))
         run = self._plan_cache.get(key)
         if run is None:
             run = self._build_fn(g, regions, input_objs, param_vals, dev)
             self._plan_cache[key] = run
-        arrays = run([buf.data.to(dev) for (_, buf) in input_objs])
-        return self._package(arrays, regions, dst)
+        # the chosen variants' directives hold while the plan is made and
+        # while it runs, and only then
+        undo = apply_all(chosen)
+        try:
+            return run(inp_arrays, presets, groups), regions
+        finally:
+            restore(undo)
 
     def _build_fn(self, g: _Graph, regions, input_objs, param_vals, dev):
-        """-> run(input tensors) -> per output, a tuple of tensors. The
-        bounds pass and the group plans are made on the first run and kept
-        (the planned graph, `run.planned`)."""
+        """-> run(input tensors, memo presets, groups) -> per output, a
+        tuple of tensors. The bounds pass and the group plans are made on
+        the first run and kept (the planned graph, `run.planned`); with
+        `groups` False every group is evaluated whole-array."""
         planned: dict = {}
 
-        def run(inp_arrays):
+        def run(inp_arrays, presets=None, groups=True):
             from .ops import group_kernel
+            presets = presets or {}
             realizations: Dict[int, Realized] = {}
             for (t, buf), arr in zip(input_objs, inp_arrays):
                 realizations[id(t)] = Realized(
                     (arr,), buf._mins, getattr(t, "name", "buf"))
+            for fid, (mins, arrs) in presets.items():
+                realizations[fid] = Realized(arrs, mins, "memo")
             if "boxes" not in planned:
                 planned["boxes"] = self._bounds(g, regions, realizations,
                                                 param_vals)
                 planned["groups"] = {}
             boxes = planned["boxes"]
-            ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev)
+            trace = self.trace
+            ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev, trace=trace)
+
+            def record(fn, b, arrays):
+                fs = fn._fschedule
+                if trace is not None and (fs.trace_stores
+                                          or fs.trace_realizations
+                                          or fs.trace_loads):
+                    trace.record_realization(fn, b, arrays)
 
             def eval_standalone(fn):
+                if id(fn) in presets:
+                    return      # memoized: fetched from the cache
                 b = boxes.get(id(fn))
                 if b is not None and b.defined():
                     realizations[id(fn)] = _evaluate_func(fn, b, ctx0)
+                    record(fn, b, realizations[id(fn)].arrays)
 
             cliques = _fusion_cliques(g)
             deferred: Dict[int, List[Func]] = {}
@@ -473,11 +620,16 @@ class Pipeline:
                     continue
                 members = deferred.pop(id(f), [])
                 real = None
-                if group_kernel.find_tile(f) is not None:
+                if groups and group_kernel.find_tile(f) is not None:
                     real = group_kernel.try_group(
                         f, box, ctx0, g, planned["groups"])
                 if real is not None:
                     realizations[id(f)] = real
+                    _emit_debug_dump(f, real.arrays)
+                    # the group's output is traced as any realization is;
+                    # its members live in the kernel's shared memory and
+                    # are not
+                    record(f, box, real.arrays)
                 else:
                     for m in members:
                         eval_standalone(m)
@@ -501,20 +653,8 @@ class Pipeline:
         return run
 
     def _bounds(self, g, regions, realizations, param_vals):
-        def resolver(name, args):
-            if name == "param":
-                return param_vals.get(id(args[0]))
-            real = realizations.get(id(args[0]))
-            if real is None:
-                return None
-            if name == "buffer_min":
-                return real.mins[args[1]]
-            if name == "buffer_extent":
-                a = real.arrays[0]
-                return a.shape[a.ndim - 1 - args[1]]
-            return None
-
-        bp = _BoundsPass(g, BoundsEngine(resolver=resolver))
+        bp = _BoundsPass(g, BoundsEngine(
+            resolver=_resolver(realizations, param_vals)))
         bp.run(self.outputs, {k: Box(list(v.dims))
                               for k, v in regions.items()})
         for t in g.inputs.values():
@@ -535,6 +675,85 @@ class Pipeline:
                         "(e.g. repeat_edge) or clamp")
         return bp.boxes
 
+    # -- memoize -----------------------------------------------------------
+    def _memo_precompute(self, g: _Graph, input_objs, param_vals, regions,
+                         dev) -> dict:
+        """{id(f): (mins, tensors on dev)} of the memoized stages (not the
+        outputs): each looked up in the native LRU cache by a hash of its
+        sub-pipeline's schedule, box, params and inputs (their bytes up to
+        8 MB each, read back from the card), and realized by its own
+        sub-pipeline and stored on a miss. `last_memo` keeps the hashing
+        time and the hits and misses."""
+        memo_funcs = [f for f in g.funcs
+                      if id(f) in g.materialized
+                      and f._fschedule.memoized
+                      and f not in self.outputs]
+        if not memo_funcs:
+            return {}
+        from .runtime import memo_cache
+        lookup = {id(t): buf for (t, buf) in input_objs}
+        realz = {id(t): Realized((buf.data,), buf._mins)
+                 for (t, buf) in input_objs}
+        bp = _BoundsPass(g, BoundsEngine(
+            resolver=_resolver(realz, param_vals)))
+        bp.run(self.outputs, {k: Box(list(v.dims))
+                              for k, v in regions.items()})
+        cache = memo_cache()
+        presets = {}
+        rec = {"key_s": 0.0, "hits": [], "misses": []}
+        for f in memo_funcs:
+            box = bp.boxes.get(id(f))
+            if box is None or not box.bounded():
+                continue
+            t0 = time.perf_counter()
+            sub = Pipeline(f)
+            sub_g = gather_graph([f])
+            h = hashlib.sha1()
+            h.update(repr(self._signature(sub_g)).encode())
+            h.update(repr((box.mins(), box.extents())).encode())
+            h.update(repr(sorted(
+                (p.name, repr(param_vals.get(id(p))))
+                for p in sub_g.params.values())).encode())
+            for t in sub_g.inputs.values():
+                buf = lookup.get(id(t))
+                if buf is None:
+                    continue
+                a = buf.data
+                h.update(str(tuple(a.shape)).encode())
+                h.update(str(a.dtype).encode())
+                if a.numel() * a.element_size() <= (8 << 20):
+                    h.update(_bytes(a))
+                else:
+                    h.update(str(id(buf)).encode())
+            key = h.digest()
+            rec["key_s"] += time.perf_counter() - t0
+            types = f.output_types()
+            shape = tuple(reversed(box.extents()))
+            hit = cache.lookup(key)
+            if hit is not None:
+                arrs, off = [], 0
+                for t in types:
+                    dt = torch_dtype(t)
+                    n = int(np.prod(shape)) * torch.empty(
+                        0, dtype=dt).element_size()
+                    arrs.append(torch.frombuffer(
+                        bytearray(hit[off:off + n]), dtype=dt).reshape(
+                            shape).to(dev))
+                    off += n
+                presets[id(f)] = (box.mins(), arrs)
+                rec["hits"].append(f.name)
+                continue
+            dsts = [Buffer(type=t, sizes=box.extents(), mins=box.mins())
+                    for t in types]
+            sub.realize(dst=dsts if len(dsts) > 1 else dsts[0], device=dev)
+            arrs = [d.data.contiguous() for d in dsts]
+            cache.store(key, b"".join(_bytes(a) for a in arrs))
+            presets[id(f)] = (box.mins(), arrs)
+            rec["misses"].append(f.name)
+        last_memo.clear()
+        last_memo.update(rec)
+        return presets
+
     def _package(self, arrays, regions, dst):
         results = []
         for f, arrs in zip(self.outputs, arrays):
@@ -553,16 +772,228 @@ class Pipeline:
             return results[0]
         return Realization(results)
 
+    # -- AOT-style compiled callable ---------------------------------------
+    def compile_to_callable(self, arguments=None, target=None):
+        """Returns fn(*buffers_or_arrays, sizes=[...], device=None) ->
+        Buffer(s): binds the arguments in order and realizes. The analog of
+        Pipeline::compile_to_callable (reference: src/Callable.h:82)."""
+        pipeline = self
+
+        class Callable:
+            def __init__(self):
+                self.arguments = arguments
+
+            def __call__(self, *args, sizes=None, device=None):
+                if arguments:
+                    for spec, val in zip(arguments, args):
+                        if isinstance(spec, ImageParam):
+                            spec.set(val if isinstance(val, Buffer)
+                                     else Buffer(val))
+                        elif isinstance(spec, Param):
+                            spec.set(val)
+                return pipeline.realize(sizes, target=target, device=device)
+
+        return Callable()
+
     def compile_jit(self, target=None):
         return self
 
-    def compile_to_callable(self, arguments=None, target=None):
-        raise NotImplementedError("compile_to_callable comes in slice 3 of "
-                                  "the port")
+    def infer_input_bounds(self, sizes, target=None, device=None):
+        """Allocate and bind zero-filled buffers, on `device` (None: the
+        card), for the unbound ImageParams, sized to the required regions
+        (reference: Pipeline.cpp:1126-1240)."""
+        dev = resolve_device(device)
+        g = gather_graph(self.outputs)
+        regions = self._out_regions(sizes)
+        unbound = [t for t in g.inputs.values()
+                   if isinstance(t, ImageParam) and t._bound is None]
+        param_vals = {}
+        for p in g.params.values():
+            try:
+                param_vals[id(p)] = p.get()
+            except CompileError:
+                if p._estimate is not None:
+                    param_vals[id(p)] = p._estimate
+                else:
+                    raise
 
-    def infer_input_bounds(self, sizes, target=None):
-        raise NotImplementedError("infer_input_bounds comes in slice 3 of "
-                                  "the port")
+        def resolver(name, args):
+            if name == "param":
+                return param_vals.get(id(args[0]))
+            obj, i = args[0], args[1]
+            if isinstance(obj, ImageParam) and obj._bound is not None:
+                b = obj._bound
+                if name == "buffer_min":
+                    return b.dim(i).min
+                return b.dim(i).extent
+            if isinstance(obj, ImageParam) and i in obj.estimates:
+                mn, ex = obj.estimates[i]
+                return static_int(mn if name == "buffer_min" else ex,
+                                  Ctx(0, {}, {}, {}, {}))
+            return None
+
+        bp = _BoundsPass(g, BoundsEngine(resolver=resolver))
+        bp.run(self.outputs, regions)
+        for t in unbound:
+            box = bp.boxes.get(id(t))
+            if box is None or not box.bounded():
+                raise CompileError(f"cannot infer bounds for {t.name}")
+            t.set(Buffer(torch.zeros(tuple(reversed(box.extents())),
+                                     dtype=torch_dtype(t.type), device=dev),
+                         mins=box.mins(), name=t.name))
+        return [t.get() for t in unbound]
+
+    # -- profile -----------------------------------------------------------
+    def profile(self, sizes=None, dst=None, mode="stages", device=None):
+        """Per-stage time/memory report on `device` (None: the card).
+
+        mode="stages": each materialized Func evaluated alone, whole-array
+        (no group kernel), once to warm up and once timed: attributable,
+        but unfused.
+        mode="fused": prefix differencing -- the pipeline truncated after
+        each materialized stage, realized exactly as realize() runs it
+        (stencil groups through their kernel), timed in steady state;
+        consecutive differences attribute per-stage cost in the real
+        program (the analog of the reference's sampling profiler,
+        runtime/profiler_common.cpp:151).
+        On the card each time is taken with CUDA events on the current
+        stream (waiting on the stop event, not on the device); on the CPU
+        with the host clock. (reference: src/Profiling.cpp;
+        HL_PROFILER_JSON_OUTPUT-style dict + formatted __str__)."""
+        dev = resolve_device(device)
+        g = gather_graph(self.outputs)
+        regions = self._out_regions(sizes, dst)
+        input_objs = self._inputs(g)
+        param_vals = {id(p): p.get() for p in g.params.values()}
+        realizations: Dict[int, Realized] = {
+            id(t): Realized((buf.data.to(dev),), buf._mins,
+                            getattr(t, "name", "buf"))
+            for (t, buf) in input_objs}
+        boxes = self._bounds(g, regions, realizations, param_vals)
+        if mode == "fused":
+            return self._profile_fused(g, boxes, sizes, dst, dev)
+        ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev)
+        entries = []
+        total = 0.0
+        for f in g.funcs:
+            if id(f) not in g.materialized:
+                continue
+            box = boxes.get(id(f))
+            if box is None or not box.defined():
+                continue
+            _evaluate_func(f, box, ctx0)           # warm-up
+            got = []
+            ms = _time_ms(lambda: got.append(_evaluate_func(f, box, ctx0)),
+                          dev)
+            real = realizations[id(f)] = got[0]
+            nbytes = sum(a.numel() * a.element_size() for a in real.arrays)
+            if not f._fschedule.no_profiling:
+                entries.append({"name": f.name, "ms": ms, "bytes": nbytes,
+                                "box": list(zip(box.mins(), box.extents()))})
+            total += ms
+        return _StagesReport(total_ms=total, funcs=entries)
+
+    def _profile_fused(self, g, boxes, sizes, dst, dev, reps: int = 3):
+        def steady_ms(p, p_sizes=None, p_dst=None):
+            p.realize(p_sizes, dst=p_dst, device=dev)      # plan, build
+            return _time_ms(lambda: [p.realize(p_sizes, dst=p_dst,
+                                               device=dev)
+                                     for _ in range(reps)], dev) / reps
+
+        out_ids = {id(f) for f in self.outputs}
+        entries = []
+        prev = 0.0
+        for f in g.funcs:
+            is_out = id(f) in out_ids
+            if id(f) not in g.materialized and not is_out:
+                continue
+            box = boxes.get(id(f))
+            if box is None or not box.defined():
+                continue
+            if is_out:
+                cum = steady_ms(self, sizes, dst)
+            else:
+                db = Buffer(type=f.output_type(0), sizes=box.extents(),
+                            mins=box.mins(), name=f.name)
+                try:
+                    cum = steady_ms(Pipeline(f), None, db)
+                except Exception:
+                    continue   # unprofilable prefix (e.g. tuple dst)
+            entries.append({"name": f.name, "ms": max(0.0, cum - prev),
+                            "cum_ms": cum,
+                            "box": list(zip(box.mins(), box.extents()))})
+            prev = cum
+        return _FusedReport(total_ms=prev, funcs=entries)
+
+    def get_func(self, i):
+        g = gather_graph(self.outputs)
+        return g.funcs[i]
+
+    def print_loop_nest(self):
+        from .loopnest import print_loop_nest
+        print_loop_nest(self.outputs[0])
+
+
+class _StagesReport(dict):
+    def __str__(self):
+        lines = [f"total (stage-at-a-time): {self['total_ms']:.3f} ms"]
+        for e2 in sorted(self["funcs"], key=lambda d: -d["ms"]):
+            pct = 100 * e2["ms"] / max(self["total_ms"], 1e-9)
+            lines.append(
+                f"  {e2['name']:28s} {e2['ms']:9.3f}ms "
+                f"({pct:5.1f}%)  {e2['bytes'] / 1e6:8.2f} MB")
+        return "\n".join(lines)
+
+
+class _FusedReport(dict):
+    def __str__(self):
+        lines = [f"total (fused): {self['total_ms']:.3f} ms "
+                 f"(per-stage = prefix deltas)"]
+        for e2 in sorted(self["funcs"], key=lambda d: -d["ms"]):
+            pct = 100 * e2["ms"] / max(self["total_ms"], 1e-9)
+            lines.append(f"  {e2['name']:28s} {e2['ms']:9.3f}ms "
+                         f"({pct:5.1f}%)  cum {e2['cum_ms']:9.3f}ms")
+        return "\n".join(lines)
+
+
+def _time_ms(fn, dev) -> float:
+    """Milliseconds fn() takes: CUDA events on the current stream of a
+    card (synchronizing on the stop event), the host clock on the CPU."""
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(stream)
+        fn()
+        b.record(stream)
+        b.synchronize()
+        return a.elapsed_time(b)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _resolver(realizations, param_vals):
+    """The bounds engine's resolver of params and input dims."""
+    def resolver(name, args):
+        if name == "param":
+            return param_vals.get(id(args[0]))
+        real = realizations.get(id(args[0]))
+        if real is None:
+            return None
+        if name == "buffer_min":
+            return real.mins[args[1]]
+        if name == "buffer_extent":
+            a = real.arrays[0]
+            return a.shape[a.ndim - 1 - args[1]]
+        return None
+    return resolver
+
+
+def _bytes(a: torch.Tensor) -> bytes:
+    """A tensor's storage bytes in its own dtype (read back from the
+    card)."""
+    return a.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
 
 
 def _owned(arrays, ctx0: Ctx) -> List[torch.Tensor]:
@@ -583,15 +1014,94 @@ def _owned(arrays, ctx0: Ctx) -> List[torch.Tensor]:
     return out
 
 
+def _evaluate_extern(f: Func, box: Box, ctx0: Ctx) -> Realized:
+    """Run the extern stage's host callback (the JAX package's
+    jax.pure_callback): numpy in, numpy out, on the host. Each input is
+    cropped to the region its footprint asked for (reference: the extern
+    receives halide_buffer_ts cropped to the bounds query) and copied off
+    the realize's device; the result is copied back onto it, in the
+    declared type. `last_extern` keeps the round trip's times and bytes."""
+    meta = f._extern
+    t0 = time.perf_counter()
+    in_arrays = []
+    for src, b2 in zip(meta["inputs"], _extern_boxes(f, box)):
+        real = ctx0.realizations.get(id(src))
+        if real is None:
+            raise CompileError(
+                f"extern stage {f.name}: input "
+                f"{getattr(src, 'name', src)} not realized")
+        arr = real.arrays[0]
+        idx = []
+        for i in reversed(range(len(b2.dims))):
+            off = int(b2.dims[i].lo) - int(real.mins[i])
+            ext = int(b2.dims[i].extent())
+            if off < 0 or off + ext > arr.shape[len(idx)]:
+                raise CompileError(
+                    f"extern stage {f.name}: queried region of "
+                    f"{getattr(src, 'name', src)} exceeds its realization")
+            idx.append(slice(off, off + ext))
+        in_arrays.append(to_numpy(arr[tuple(idx)]))
+    t1 = time.perf_counter()
+    result = np.asarray(meta["callback"](*in_arrays))
+    t2 = time.perf_counter()
+    out_shape = tuple(reversed(box.extents()))
+    if tuple(result.shape) != out_shape:
+        raise CompileError(
+            f"extern stage {f.name}: callback returned shape "
+            f"{tuple(result.shape)}, expected {out_shape}")
+    out = torch.from_numpy(np.ascontiguousarray(result)).to(
+        ctx0.device).to(torch_dtype(meta["type"]))
+    if out.device.type == "cuda":
+        torch.cuda.synchronize(out.device)
+    last_extern.clear()
+    last_extern.update(
+        func=f.name, copy_out_s=t1 - t0, callback_s=t2 - t1,
+        copy_in_s=time.perf_counter() - t2,
+        bytes_out=sum(a.nbytes for a in in_arrays), bytes_in=result.nbytes)
+    return Realized((out,), box.mins(), f.name)
+
+
+def _debug_dump_cb(fname: str, a: np.ndarray) -> None:
+    """debug_to_file writer (reference: src/DebugToFile.cpp), byte for byte
+    the JAX package's. `.npy` gets the numpy format; otherwise a 5-int32
+    header (four extents minor-first, padded with 1s, then a type code per
+    HalideRuntime's debug_to_file table) followed by the raw data."""
+    if fname.endswith(".npy"):
+        np.save(fname, a)
+        return
+    codes = {"float32": 0, "float64": 1, "uint8": 2, "int8": 3,
+             "uint16": 4, "int16": 5, "uint32": 6, "int32": 7,
+             "uint64": 8, "int64": 9}
+    ext = list(reversed(a.shape)) + [1] * max(0, 4 - a.ndim)
+    hdr = np.asarray(ext[:4] + [codes.get(a.dtype.name, 0)], np.int32)
+    with open(fname, "wb") as fh:
+        hdr.tofile(fh)
+        a.tofile(fh)
+
+
+def _emit_debug_dump(f: Func, arrays) -> None:
+    """Dump each value of f's realization where its schedule asks for it
+    (a copy off the card; bfloat16, which numpy lacks, as float32)."""
+    fname = f._fschedule.debug_file
+    if not fname:
+        return
+    for i, arr in enumerate(arrays):
+        out = fname if len(arrays) == 1 else f"{fname}.{i}"
+        _debug_dump_cb(out, to_numpy(arr))
+
+
 def _evaluate_func(f: Func, box: Box, ctx0: Ctx) -> Realized:
     """Whole-array evaluation of a Func over `box`, its update definitions
-    applied in order, stored in the storage dtype of each value's Type."""
+    applied in order, stored in the storage dtype of each value's Type
+    (and dumped where its schedule asks: debug_to_file)."""
+    if f.is_extern():
+        return _evaluate_extern(f, box, ctx0)
     from .updates import apply_update
     axes = {v.name: Axis(v.name, i, int(box.dims[i].lo),
                          int(box.dims[i].extent()))
             for i, v in enumerate(f._args)}
     ctx = Ctx(f.dimensions(), axes, {}, ctx0.realizations, ctx0.params,
-              ctx0.device)
+              ctx0.device, trace=ctx0.trace)
     shape = full_shape(ctx, list(axes.values()))
     types = [v.dtype for v in f._defs[0].values]
     updates = f._defs[1:]
@@ -606,6 +1116,7 @@ def _evaluate_func(f: Func, box: Box, ctx0: Ctx) -> Realized:
             continue
         arrays.append(eval_array(v, ctx).expand(shape).to(dt).contiguous())
     if not updates:
+        _emit_debug_dump(f, arrays)
         return Realized(arrays, box.mins(), f.name)
     # updates write their Func's tensors in place where they can (the scan
     # kernel writes its span directly): first make sure nothing else holds
@@ -613,8 +1124,9 @@ def _evaluate_func(f: Func, box: Box, ctx0: Ctx) -> Realized:
     current = _owned(arrays, ctx0)
     for d in updates:
         ctx_u = Ctx(f.dimensions(), axes, {}, dict(ctx0.realizations),
-                    ctx0.params, ctx0.device)
+                    ctx0.params, ctx0.device, trace=ctx0.trace)
         ctx_u.realizations[id(f)] = Realized(current, box.mins(), f.name)
         current = _owned(apply_update(f, d, current, ctx_u), ctx0)
-    return Realized([a.to(torch_dtype(t)) for a, t in zip(current, types)],
-                    box.mins(), f.name)
+    arrays = [a.to(torch_dtype(t)) for a, t in zip(current, types)]
+    _emit_debug_dump(f, arrays)
+    return Realized(arrays, box.mins(), f.name)

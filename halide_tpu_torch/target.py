@@ -1,11 +1,18 @@
 """Target descriptions (reference: src/Target.h:85-208, src/Target.cpp).
 
-A Target here is `cuda-<generation>`, e.g. "cuda-sm_90", or `cpu`. `host` resolves to the attached card when torch sees one whose
+A Target here is `cuda-<generation>[-feature...]`, e.g. "cuda-sm_90", or
+`cpu`. `host` resolves to the attached card when torch sees one whose
 compute capability is 9.0 (Hopper), else to the CPU. Env vars HL_TARGET /
 HL_JIT_TARGET are honored like the reference.
 
 The target describes what is attached; it does not pick the device a realize
-runs on (Pipeline.realize's `device` does that).
+runs on (Pipeline.realize's `device` does that). The features are the JAX
+package's names, and Pipeline.realize reads three of them as it does:
+`trace_all` arms a trace on every Func, `no_pallas` and `interpret` keep the
+stencil-group kernel out (every group runs whole-array), and `profile`
+prints the pipeline's profile after the realize. The others are accepted
+and recorded. `megacore` (the TPU's two-core grid split) has no meaning on
+this card and is rejected.
 """
 from __future__ import annotations
 
@@ -17,7 +24,12 @@ __all__ = ["Target", "get_host_target", "get_jit_target_from_environment",
 
 _KNOWN_ARCH = {"cuda", "cpu", "host"}
 _KNOWN_GEN = {"sm_90", "generic"}
-_KNOWN_FEATURES: FrozenSet[str] = frozenset()     # none in this slice
+_KNOWN_FEATURES: FrozenSet[str] = frozenset({
+    "profile", "trace_all", "trace_loads", "trace_stores",
+    "trace_realizations", "debug", "no_asserts", "interpret",
+    "no_pallas", "strict_float", "jit",
+})
+_TPU_FEATURES = {"megacore"}
 
 
 class Target:
@@ -47,6 +59,9 @@ class Target:
             if p in _KNOWN_FEATURES:
                 self.features.add(p)
                 continue
+            if p in _TPU_FEATURES:
+                raise ValueError(f"target feature {p!r} in {spec!r} is a "
+                                 "TPU feature; a CUDA target has none")
             raise ValueError(f"unknown target component {p!r} in {spec!r}")
 
     def has_feature(self, f: str) -> bool:

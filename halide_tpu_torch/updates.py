@@ -1182,7 +1182,7 @@ def _try_outer_loop(func, d, current, base_ctx: Ctx, rdom_axes):
         d2.schedule = d.schedule
         ctx2 = Ctx(base_ctx.ndim, base_ctx.axes, base_ctx.bindings,
                    dict(base_ctx.realizations), base_ctx.params,
-                   base_ctx.device)
+                   base_ctx.device, trace=base_ctx.trace)
         ctx2.realizations[id(func)] = Realized(
             cur, [base_ctx.axes[v.name].min for v in init_args], func.name)
         cur = apply_update(func, d2, cur, ctx2, allow_self_reads=True)
