@@ -99,7 +99,25 @@ Then it drives the port's main paths through `App.bind` /
   curve's output; the miss, hit and key-hashing times); blur over an
   extern stage that makes its input on the host (through K1, against its
   golden, with the round trip's copy times); and a `debug_to_file` dump
-  of blur's compute_root producer, equal to it.
+  of blur's compute_root producer, equal to it;
+- then the `slice3_tools` phase: blur (2560x1536 u16), unsharp and
+  harris (1536x2560x3 f32) and camera_pipe (2560x1920) with their
+  producers unscheduled (camera_pipe's demosaic roots kept) and estimates
+  at those sizes, scheduled by Mullapudi2016 and by Adams2019
+  (`auto_app`), each against its golden and its manual
+  schedule's output (blur's and camera_pipe's tiles above, unsharp and
+  harris tiled 256x128) with its K1 launches (one at least each), and
+  manual and auto realizes timed in turns;
+  Anderson2021 on blur (its candidates timed on the card); fitcost on the
+  card beside the package's sm_90 row; tilesearch on blur with a menu of
+  three tiles; `gen -e object` of blur (tiled 256x128) and hist,
+  reloaded and run on the card: K1 / K3 launched once, bit for bit
+  realize's output, timed beside it; `rungen iir_blur --benchmarks`
+  (K2a); and `propagate_adjoints` of a tiled float stencil with a Param
+  at 1536x2560 (`grad_stencil`: its forward one K1 launch, whose output
+  is held against the plain version and realize's; the gradient, which
+  the backward computes by the plain version's recomputation, against the
+  port on the CPU within rtol 1e-5).
 
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan, and
@@ -494,26 +512,15 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
 
 
 def plan_groups(apps):
-    """Realize each (bound) app once with K1's launch replaced by a stand-in
-    that keeps the plan and returns an empty output, so that every group's
-    source is known before any kernel runs. A rejected plan fails. ->
-    the plans."""
+    """Realize each (bound) app once with its groups planned and not
+    computed (`group_kernel.planning`), so that every group's source is
+    known before any kernel runs. A rejected plan fails. -> the plans."""
     from halide_tpu_torch.ops import group_kernel as gk
     plans = []
-    orig = gk.launch
-
-    def keep(plan, inputs, real_mins):
-        plans.append(plan)
-        return torch.empty(tuple(reversed(plan.extents)),
-                           dtype=gk.torch_dtype(plan.out_type),
-                           device="cuda")
     gk.rejects.clear()
-    gk.launch = keep
-    try:
+    with gk.planning(lambda plan, *_a: plans.append(plan)):
         for app in apps:
             app.realize()
-    finally:
-        gk.launch = orig
     if gk.rejects:
         raise SystemExit(f"rejected group plans: {dict(gk.rejects)}")
     return plans
@@ -1284,6 +1291,301 @@ def slice3_surface(card, timer, dev, sizes, apps):
     return out
 
 
+def grad_stencil(m, width, height, tile=None, seed=0):
+    """A float stencil for propagate_adjoints: by = (bx[y-1] + bx^2 +
+    bx[y+1]) k of bx = the edge-clamped input's 1-2-1 along x, k a Param,
+    with bx computed at by's tiles where `tile` is given (K1's path). `m`
+    is the port; the input is set on the card. -> (by, propagate_adjoints'
+    keyword arguments)."""
+    x, y = m.Var("x"), m.Var("y")
+    img = m.ImageParam(m.Float(32), 2, "gin")
+    cl = m.repeat_edge(img)
+    bx, by = m.Func("gbx"), m.Func("gby")
+    k = m.Param(m.Float(32), "k", 0.75)
+    bx[x, y] = cl[x - 1, y] + 2.0 * cl[x, y] + cl[x + 1, y]
+    by[x, y] = (bx[x, y - 1] + bx[x, y] * bx[x, y] + bx[x, y + 1]) * k
+    if tile is not None:
+        xo, yo, xi, yi = (m.Var(n) for n in ("xo", "yo", "xi", "yi"))
+        by.tile(x, y, xo, yo, xi, yi, tile[0], tile[1])
+        bx.compute_at(by, xo)
+    a = np.random.default_rng(seed).random((height, width), np.float32)
+    img.set(torch.from_numpy(a).cuda())
+    return by, dict(sizes=[width, height], wrt=[img, k])
+
+
+def unschedule(app):
+    """Clear the compute level and compute_with of every producer of the
+    app in place, so that the autoscheduler decides them all (the
+    reference's apps build their auto-scheduled variant without the manual
+    schedule). -> app."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.schedule import LoopLevel
+    for f in ht.pipeline.gather_graph(app.pipeline.outputs).funcs:
+        if f not in app.pipeline.outputs:
+            f._fschedule.compute_level = LoopLevel()
+            for d in f._defs:
+                d.schedule.fused_with = []
+    return app
+
+
+def auto_app(build, name, **kw):
+    """The app at its default schedule, its output's estimates its sizes,
+    scheduled by the autoscheduler `name`. -> (app, its report)."""
+    app = build(**kw)
+    for out in app.pipeline.outputs:
+        out.set_estimates([(0, int(s)) for s in app.output_sizes])
+    return app, app.pipeline.apply_autoscheduler(params={"name": name})
+
+
+def slice3_tools(card, timer, dev, apps):
+    """The phase of the autoschedulers and the tools, on the card: each
+    app autoscheduled by Mullapudi2016 and Adams2019 against its golden
+    and its manual schedule (the reference's "manually-tuned /
+    auto-scheduled" pair, BASELINE.md:45), timed in turns; Anderson2021 on
+    blur; fitcost beside the package's sm_90 row; tilesearch on blur;
+    `gen -e object` of blur and hist reloaded and run; `rungen
+    --benchmarks` of iir_blur; propagate_adjoints of a float stencil
+    through K1 against the port on the CPU. Every kernel count is set to 0
+    just before each path and read just after; `timer(fn, n)` is the
+    median of n timed calls (CUDA events, L2 flushed). Fails the run on
+    any disagreement. -> a dict of the numbers it prints."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import zipfile
+
+    import halide_tpu_torch as ht
+    from halide_tpu_torch import generator
+    from halide_tpu_torch.ops import export_ops
+    from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    from halide_tpu_torch.ops import scan_kernel as sk
+    from halide_tpu_torch.tools import fitcost
+    from halide_tpu_torch.tools import gen as gen_cli
+    from halide_tpu_torch.tools import rungen, tilesearch
+    out = {}
+
+    def counts0():
+        gk.launches = rk.launches = 0
+        sk.launches["const"] = sk.launches["general"] = 0
+        gk.rejects.clear()
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"K1": gk.launches, "K2a": sk.launches["const"],
+                "K2b": sk.launches["general"], "K3": rk.launches,
+                "rejects": dict(gk.rejects)}
+
+    def fail(msg):
+        raise SystemExit(f"slice3_tools: {msg}")
+
+    def host_ms(fn, n=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def printed(fn, *a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*a)
+        for ln in buf.getvalue().splitlines():
+            say(ln)
+        if rc:
+            fail(f"{fn.__module__} returned {rc}")
+        return buf.getvalue()
+
+    # autoscheduled apps against their goldens and manual schedules
+    out["auto"] = {}
+    for name, (manual, data, autos) in apps["auto"].items():
+        golden = manual.reference(**data)
+        want = manual.realize(dev).to_numpy()
+        for sched, (app, rep) in autos.items():
+            counts0()
+            got = app.realize(dev).to_numpy()
+            n = counts()
+            check_golden(f"{name} {sched}", got, golden, app.tolerance,
+                         app.atol, app.mismatch_frac)
+            check_golden(f"{name} {sched} against the manual schedule", got,
+                         want, app.tolerance, app.atol, app.mismatch_frac)
+            plan = gk.plans_by_name.get(app.pipeline.outputs[0].name)
+            if n["K1"] < 1:
+                fail(f"{name} {sched}: no K1 launch ({n}, rejects "
+                     f"{dict(gk.rejects_by_name)})")
+            ms = [timer(lambda a=a: a.realize(dev), 10)
+                  for a in (manual, app, app, manual)]
+            rec = {"manual_ms": (ms[0] + ms[3]) / 2,
+                   "auto_ms": (ms[1] + ms[2]) / 2, "counts": n,
+                   "schedule": rep["schedule_source"],
+                   "plan": plan and {k: plan[k] for k in (
+                       "tile", "sub_tile", "threads", "grid", "members")}}
+            rec["auto_over_manual"] = rec["auto_ms"] / rec["manual_ms"]
+            out["auto"][f"{name}/{sched}"] = rec
+            say(f"{name} {sched}: counts {n}; K1 plan {rec['plan']}; manual "
+                f"{ms[0]:.4f}, {ms[3]:.4f} ms, auto {ms[1]:.4f}, "
+                f"{ms[2]:.4f} ms (in turns; auto/manual "
+                f"{rec['auto_over_manual']:.3f}) on {card}")
+
+    # Anderson2021: its candidates realized and timed on the card
+    app_an, data_an = apps["anderson"]
+    res = app_an.pipeline.apply_autoscheduler(
+        params={"name": "Anderson2021", "samples": 3})
+    counts0()
+    got = app_an.realize(dev).to_numpy()
+    n = counts()
+    check_golden("blur Anderson2021", got, app_an.reference(**data_an), 0, 0)
+    if "autotuned" not in res or n["K1"] != 1:
+        fail(f"Anderson2021 on blur: {res}, counts {n}")
+    out["anderson2021"] = dict(res["autotuned"],
+                               schedule=res["schedule_source"])
+    say(f"Anderson2021 on blur 2560x1536: {res['autotuned']}; counts {n}; "
+        f"on {card}")
+
+    # fitcost on the card, beside the row the package holds
+    text = printed(fitcost.main, [])
+    line = next(ln for ln in text.splitlines() if ln.startswith("FITCOST"))
+    got = {k: float(v) for k, v in (t.split("=") for t in line.split()[2:])}
+    out["fitcost"] = dict(got, package_row=ht.target.FITTED_COST["sm_90"])
+    say(f"fitcost on {card}: {got}; the package's sm_90 row "
+        f"{ht.target.FITTED_COST['sm_90']}")
+
+    # tilesearch on blur, a menu of three tiles
+    rows = tilesearch.search("blur", apps["tiles"], None, dev,
+                             out=io.StringIO())
+    out["tilesearch"] = [{"label": lb, "ms": ms,
+                          "sub_tile": p and p["sub_tile"]}
+                         for ms, lb, p in rows]
+    if len(rows) != len(apps["tiles"]) + 1:
+        fail(f"tilesearch: {len(rows)} of {len(apps['tiles']) + 1} shapes "
+             "realized correctly")
+    say(f"tilesearch blur 2560x1536 on {card}: {out['tilesearch']}")
+
+    # gen -e object: blur (tiled) and hist, reloaded and run on the card
+    out["object"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, app, args, kern in apps["object"]:
+            sizes = "x".join(str(v) for v in app.output_sizes)
+            printed(gen_cli.main, ["-g", name, "-o", tmp, "-e", "object",
+                                   "--sizes", sizes] + args)
+            path = os.path.join(tmp, f"{name}.exported")
+            with open(path, "rb") as fh:
+                blob = fh.read()
+            fn = generator.load_compiled(blob)
+            x = [s.get().data for s in app.inputs]
+            want = app.realize(dev).to_numpy()
+            counts0()
+            got = fn(*x)[0].cpu().numpy()
+            n = counts()
+            same = got.dtype == want.dtype and np.array_equal(got, want)
+            if not same or n[kern] != 1:
+                fail(f"{name} loaded from its exported program: bit for bit "
+                     f"{same}, counts {n}")
+            ms = [timer(f, 10) for f in (lambda: app.realize(dev),
+                                         lambda: fn(*x), lambda: fn(*x),
+                                         lambda: app.realize(dev))]
+            out["object"][name] = {
+                "bytes": len(blob), "counts": n,
+                "loaded_ms": (ms[1] + ms[2]) / 2,
+                "realize_ms": (ms[0] + ms[3]) / 2}
+            if kern == "K1":
+                # what a launch through the custom op costs the host,
+                # against the direct ctypes launch realize makes
+                with zipfile.ZipFile(io.BytesIO(blob)) as z:
+                    key = next(iter(json.loads(z.read("meta.json"))[
+                        "kernels"]))
+                plan, mins, _params = export_ops.plans[key]
+                out["object"][name].update(
+                    op_launch_ms=host_ms(
+                        lambda: export_ops.group_op(x, key)),
+                    direct_launch_ms=host_ms(
+                        lambda: gk.launch(plan, x, mins)))
+                say(f"a K1 launch from the host through the custom op "
+                    f"{out['object'][name]['op_launch_ms']:.4f} ms, direct "
+                    f"(realize's) {out['object'][name]['direct_launch_ms']:.4f}"
+                    f" ms (200 in a row, to completion) on {card}")
+            say(f"{name} gen -e object ({len(blob)} bytes), loaded: bit for "
+                f"bit {same}, counts {n}; loaded run {ms[1]:.4f}, "
+                f"{ms[2]:.4f} ms, realize {ms[0]:.4f}, {ms[3]:.4f} ms (in "
+                f"turns) on {card}")
+
+    # rungen --benchmarks of iir_blur (K2a)
+    counts0()
+    text = printed(rungen.main, ["iir_blur", "--benchmarks=all",
+                                 "--parsable_output"])
+    n = counts()
+    if n["K2a"] < 4:
+        fail(f"rungen iir_blur: counts {n}")
+    out["rungen_iir_blur"] = dict(json.loads(text.strip().splitlines()[-1]),
+                                  counts=n)
+
+    # propagate_adjoints through K1 on the card against the CPU. The
+    # gradient comes from the backward, which recomputes the group with
+    # its plain version (torch ops on the card): K1's forward output
+    # feeds only the summed total. So the output K1 gave the forward is
+    # recorded, and held against the plain version on the same arguments
+    # and against realize's
+    by, kw = apps["grad"]
+    seen = []
+    launch0 = gk.launch
+
+    def recorded(plan, inputs, real_mins):
+        res = launch0(plan, inputs, real_mins)
+        seen.append((plan, [t.detach() for t in inputs], real_mins,
+                     res.detach()))
+        return res
+
+    counts0()
+    gk.launch = recorded
+    try:
+        g_card = ht.propagate_adjoints(by, **kw)
+    finally:
+        gk.launch = launch0
+    n = counts()
+    if len(seen) != 1:
+        fail(f"propagate_adjoints: {len(seen)} K1 launches recorded")
+    plan, ins, mins, fwd = seen[0]
+    params = {id(p): p.get()
+              for p in ht.pipeline.gather_graph([by]).params.values()}
+    plain = gk.run_plain(plan, ins, mins, params, fwd.device)
+    fwd_err = float((fwd.double() - plain.double()).abs().max())
+    if not torch.allclose(fwd, plain, rtol=1e-5, atol=1e-6):
+        fail(f"propagate_adjoints: K1's forward output differs from its "
+             f"plain version (max abs err {fwd_err!r})")
+    whole = by.realize(kw["sizes"]).to_numpy()
+    fwd_same = np.array_equal(fwd.cpu().numpy(), whole)
+    if not fwd_same:
+        fail("propagate_adjoints: K1's forward output differs from "
+             "realize's")
+    g_cpu = ht.propagate_adjoints(by, device="cpu", **kw)
+    errs = {}
+    for k in g_cpu:
+        a, b = np.asarray(g_card[k], np.float64), np.asarray(g_cpu[k],
+                                                             np.float64)
+        errs[k] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-30)).max())
+        if not np.allclose(a, b, rtol=1e-5, atol=1e-6):
+            fail(f"propagate_adjoints: {k} on the card differs from the CPU "
+                 f"(max rel err {errs[k]!r})")
+    if n["K1"] != 1 or n["rejects"]:
+        fail(f"propagate_adjoints: counts {n}")
+    ms = timer(lambda: ht.propagate_adjoints(by, **kw), 5)
+    out["propagate_adjoints"] = {"counts": n, "max_rel_err": errs,
+                                 "forward_k1_max_abs_err": fwd_err,
+                                 "forward_equals_realize": fwd_same,
+                                 "ms": ms}
+    say(f"propagate_adjoints of a tiled float stencil 1536x2560 on the "
+        f"card: counts {n}; K1's forward output against its plain version "
+        f"max abs err {fwd_err!r} (rtol 1e-5), equal to realize's "
+        f"{fwd_same}; the gradient (the plain version's recomputation) "
+        f"against the CPU max rel err {errs} (rtol 1e-5); {ms:.4f} ms on "
+        f"{card}")
+    return out
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
     """One row of the kernel table. `ops` is (f32, integer) operations:
@@ -1396,11 +1698,56 @@ def main():
     app_rb, _text = deserialized(app_c64)  # camera_pipe read back
     app_rb.bind(data[id(app_c64)])
     p_sp.set(1)                            # the tiled branch
+    # slice3_tools' pipelines, planned here so that their sources build with
+    # the rest: blur, unsharp, harris and camera_pipe with their producers
+    # unscheduled (the reference's auto-scheduled variants; camera_pipe
+    # keeps its demosaic's roots, as its kernel branch does),
+    # autoscheduled by both searches (beside their manual schedules:
+    # blur's and camera_pipe's kernel branch tiles, unsharp and harris
+    # tiled 256x128), blur for Anderson2021 and at tilesearch's
+    # three tiles, fitcost's chains in K1 and the stencil
+    # propagate_adjoints differentiates
+    from halide_tpu_torch.tools import fitcost
+    auto = {}
+    for nm, build_a, manual in (
+            ("blur", lambda: blur.build(2560, 1536), app_b),
+            ("unsharp", lambda: unschedule(unsharp.build(1536, 2560)),
+             app_unt),
+            ("harris", lambda: unschedule(harris.build(1536, 2560)),
+             app_hrt),
+            ("camera_pipe", lambda: camera_pipe.build(
+                2560, 1920, roots="deinterleaved,g_r,g_b"), app_c64)):
+        autos = {sc: auto_app(build_a, sc)
+                 for sc in ("Mullapudi2016", "Adams2019")}
+        for a, _rep in autos.values():
+            a.bind(data[id(manual)])
+        auto[nm] = (manual, data[id(manual)], autos)
+    app_an = blur.build(2560, 1536)        # scheduled by Anderson2021
+    app_an.pipeline.outputs[0].set_estimates([(0, 2558), (0, 1534)])
+    app_an.bind(data[id(app_b)])
+    tiles = [(256, 128), (128, 64), (2560, 128)]
+    app_ts = []
+    for t in tiles:
+        a = blur.build(2560, 1536)
+        a.pipeline.outputs[0].set_estimates([(0, 2558), (0, 1534)])
+        a.pipeline.apply_autoscheduler(params={"tile": t})
+        a.bind(data[id(app_b)])
+        app_ts.append(a)
+    chain_in = torch.zeros((4096, 4096), device="cuda")
+    app_ch = [App(f"chain{k}", fitcost.chain_pipeline(
+        ht, k, chain_in, (256, 128)), [], lambda seed=0: {}, None,
+        [4096, 4096]) for k in (16, 128)]
+    grad_by, grad_kw = grad_stencil(ht, 1536, 2560, (256, 128))
+    app_gr = App("grad", ht.Pipeline(grad_by), [], lambda seed=0: {}, None,
+                 [1536, 2560])
     plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
                          app_c64, app_8, app_unt, app_hrt, app_nl, app_co,
                          app_bg, app_bgu, app_sp, app_cm, app_e, app_tr,
                          app_rb]
-                        + list(apps_in.values()) + list(apps_h.values()))
+                        + list(apps_in.values()) + list(apps_h.values())
+                        + [a for _m, _d, au in auto.values()
+                           for a, _r in au.values()]
+                        + app_ts + app_ch + [app_gr])
     # the carried groups planned again with no carry, at the same sub-tile
     # and threads and at the rule's own: built with the rest, timed beside
     # the carried ones
@@ -2030,6 +2377,19 @@ def main():
          "extern": (pipe_e, raw_e, golden_e, data_e),
          "debug": (app_dbg, data[id(app_dbg)])})
     say(f"slice3_surface on {card}: " + json.dumps(surface))
+
+    # the autoschedulers, fitcost, tilesearch, the generator's exported
+    # programs, rungen and propagate_adjoints
+    phase("slice3_tools")
+    tools = slice3_tools(
+        card, lambda fn, n: event_ms(fn, n, flush), torch.device("cuda"),
+        {"auto": auto, "anderson": (app_an, data[id(app_b)]),
+         "tiles": tiles,
+         "object": [("blur", app_b, ["width=2560", "height=1536",
+                                     "tile=256,128"], "K1"),
+                    ("hist", app_h, ["width=1536", "height=2560"], "K3")],
+         "grad": (grad_by, grad_kw)})
+    say(f"slice3_tools on {card}: " + json.dumps(tools))
 
     phase("kernels")
     signal.alarm(0)

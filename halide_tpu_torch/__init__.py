@@ -14,8 +14,15 @@ row-histogram kernel (ops/rowhist_kernel), rfactor, the print/error
 hooks, and the surface around realize: specialize, wrapper Funcs, extern
 stages, compile_to_callable, infer_input_bounds, serialization, tracing
 (trace), the profile, memoize on the native host runtime (runtime),
-debug_to_file, the loop nest (loopnest) and the HTML report (report).
-Realize runs on the card unless the caller passes device="cpu".
+debug_to_file, the loop nest (loopnest) and the HTML report (report); the
+autoschedulers (autoschedule: Mullapudi2016, Adams2019, Anderson2021 and
+Li2018, over a cost table fitted on the card, target.FITTED_COST), the
+generator (generator: its artifacts, an exported program among them, whose
+kernels are torch.library custom ops, ops/export_ops), the tools (tools:
+gen, rungen, traceviz, tilesearch, fitcost, abtest) and
+propagate_adjoints (derivative, through torch.autograd).
+Realize, the tools and propagate_adjoints run on the card unless the
+caller asks for the CPU.
 """
 import sys as _sys
 
@@ -63,4 +70,6 @@ __all__ = [
 ] + list(_irop_all)
 
 from .serialize import serialize_pipeline, deserialize_pipeline  # noqa: E402
-__all__ += ["serialize_pipeline", "deserialize_pipeline"]
+from .derivative import propagate_adjoints                        # noqa: E402
+__all__ += ["serialize_pipeline", "deserialize_pipeline",
+            "propagate_adjoints"]

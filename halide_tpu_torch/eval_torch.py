@@ -758,7 +758,12 @@ def _eval_intrin(e: E.Intrin, ctx: Ctx):
         p = e.args[0]
         if id(p) not in ctx.params:
             raise CompileError(f"Param {p.name} is unset")
-        return _const(ctx.params[id(p)], e.dtype, ctx)
+        v = ctx.params[id(p)]
+        if isinstance(v, torch.Tensor):
+            # a traced value (derivative.propagate_adjoints): kept in the
+            # graph, not read to the host
+            return v.to(device=ctx.device, dtype=compute_dtype(e.dtype))
+        return _const(v, e.dtype, ctx)
     if n in ("buffer_min", "buffer_extent"):
         img, i = e.args
         real = ctx.realizations.get(id(img))

@@ -161,11 +161,13 @@ The plan records the schedule's async()/ring_buffer() request
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import ctypes
 import hashlib
 import itertools
 import math
+import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -872,8 +874,12 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         walk, n_buf = (_CARRY_WALK, 2) if carried else (1, 1)
         fixed, moving, mem = layout(stages, {id(st.target) for st in stages
                                              if st.name in carried}, axis)
+        # HALIDE_TPU_NO_PIPELINE plans one window buffer, as the JAX
+        # planner turns its double-buffered window copies off
+        # (pallas_group.py:1221-1227): the A/B of tools/abtest.py
         if n_buf == 2 and (not moving or fixed + 2 * moving + mem
-                           > _SMEM_LIMIT):
+                           > _SMEM_LIMIT
+                           or os.environ.get("HALIDE_TPU_NO_PIPELINE")):
             n_buf = 1
         smem = fixed + n_buf * moving + mem
         if smem > _SMEM_LIMIT:
@@ -1334,11 +1340,91 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
     inputs = [ctx0.realizations[id(w.target)].arrays[0]
               for w in plan.windows]
     real_mins = [ctx0.realizations[id(w.target)].mins for w in plan.windows]
-    if ctx0.device.type == "cpu":
-        out = run_plain(plan, inputs, real_mins, ctx0.params, ctx0.device)
-    else:
-        out = launch(plan, inputs, real_mins)
+    out = compute(plan, inputs, real_mins, ctx0.params, ctx0.device)
     return Realized((out,), plan.mins, f.name)
+
+
+# where set, `compute` hands each plan to this callable and computes
+# nothing (`planning`)
+_PLANNING = [None]
+
+
+@contextlib.contextmanager
+def planning(keep):
+    """While it holds, a realize plans its groups and computes none of
+    them: each group's output is left uninitialized, and keep(plan,
+    windows' realized mins, params) sees each plan (the lowered program of
+    generator's pysource, the plans an exported program names)."""
+    old = _PLANNING[0]
+    _PLANNING[0] = keep
+    try:
+        yield
+    finally:
+        _PLANNING[0] = old
+
+
+def compute(plan: GroupPlan, inputs, real_mins, params: dict,
+            dev: torch.device) -> torch.Tensor:
+    """The group's output: the kernel on the card, its plain version on the
+    CPU. While a program is exported, through the custom op that names the
+    kernel (export_ops); where autograd asks for a gradient (an input, or a
+    traced Param, that requires one), through `_GroupGrad`, whose forward
+    is the same launch or plain version."""
+    from . import export_ops
+    if _PLANNING[0] is not None:
+        _PLANNING[0](plan, real_mins, params)
+        return torch.empty(tuple(reversed(plan.extents)),
+                           dtype=torch_dtype(plan.out_type), device=dev)
+    if export_ops.exporting():
+        key = export_ops.group_key(plan)
+        export_ops.plans[key] = (plan, real_mins, params)
+        return export_ops.group_op(list(inputs), key)
+    traced = [pid for pid, v in params.items()
+              if isinstance(v, torch.Tensor) and v.requires_grad]
+    if torch.is_grad_enabled() and (traced or any(
+            t.requires_grad for t in inputs)):
+        return _GroupGrad.apply(plan, real_mins, params, traced, dev,
+                                *inputs, *(params[p] for p in traced))
+    if dev.type == "cpu":
+        return run_plain(plan, inputs, real_mins, params, dev)
+    return launch(plan, inputs, real_mins)
+
+
+class _GroupGrad(torch.autograd.Function):
+    """K1 under autograd. The forward launches the kernel (or runs the
+    plain version on the CPU) without a graph; the backward recomputes the
+    plain version (torch ops, on the same device) with a graph and takes
+    its vector-Jacobian product. No kernel of the JAX package has a
+    backward kernel either: `jax.grad` differentiates its Pallas kernel's
+    body."""
+
+    @staticmethod
+    def forward(ctx, plan, real_mins, params, traced, dev, *tensors):
+        n = len(plan.windows)
+        ctx.plan, ctx.real_mins, ctx.params = plan, real_mins, params
+        ctx.traced, ctx.dev, ctx.n = traced, dev, n
+        ctx.save_for_backward(*tensors)
+        vals = dict(params)
+        vals.update({p: t.detach() for p, t in zip(traced, tensors[n:])})
+        inputs = [t.detach() for t in tensors[:n]]
+        if dev.type == "cpu":
+            return run_plain(plan, inputs, real_mins, vals, dev)
+        return launch(plan, inputs, real_mins)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        tensors = [t.detach().requires_grad_(t.requires_grad)
+                   for t in ctx.saved_tensors]
+        vals = dict(ctx.params)
+        vals.update(zip(ctx.traced, tensors[ctx.n:]))
+        wanted = [t for t in tensors if t.requires_grad]
+        with torch.enable_grad():
+            out = run_plain(ctx.plan, tensors[:ctx.n], ctx.real_mins, vals,
+                            ctx.dev)
+            got = iter(torch.autograd.grad(out, wanted, grad_out,
+                                           allow_unused=True))
+        grads = [next(got) if t.requires_grad else None for t in tensors]
+        return (None, None, None, None, None, *grads)
 
 
 def group_calls(pipeline, device=None, replan=None) -> list:
@@ -1900,6 +1986,8 @@ class _PointEmitter:
                 f"intrinsic {n} in a group: it runs whole-array")
         if n == "param":
             v = self.ctx0.params[id(e.args[0])]
+            if isinstance(v, torch.Tensor):     # a traced Param's value
+                v = v.detach().item()
             if e.dtype.is_float():
                 return _float_lit(float(v), e.dtype)
             return _int_lit(int(v), e.dtype)

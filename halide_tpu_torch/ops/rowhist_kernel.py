@@ -83,7 +83,11 @@ def rowhist_plain(lin2d: torch.Tensor, K: int,
 
 def rowhist(lin2d: torch.Tensor, K: int, scale: float = 1.0) -> torch.Tensor:
     """Row histograms of `lin2d` as f32 counts * scale: on the CPU through
-    the plain version, on the card through the kernel."""
+    the plain version, on the card through the kernel; while a program is
+    exported, through the custom op that names the kernel (export_ops)."""
+    from . import export_ops
+    if export_ops.exporting():
+        return export_ops.rowhist_op(lin2d, K, scale)
     if lin2d.device.type == "cpu":
         return rowhist_plain(lin2d, K, scale)
     return launch(lin2d, K, scale)

@@ -109,11 +109,80 @@ def linear_scan(out: torch.Tensor, b: torch.Tensor, init: torch.Tensor,
     """Write the scan of y[i] = a*y[i-1] + b[i] along `axis` into `out` (a
     tensor of b's shape, any strides, typically a span of a Func's buffer)
     and return it. On the CPU through the plain version; on the card
-    through the kernel (K2a with a_const, K2b with a)."""
+    through the kernel (K2a with a_const, K2b with a). While a program is
+    exported, through the custom op that names the kernel (export_ops);
+    where autograd asks for a gradient of b, init or a, through
+    `_ScanGrad`."""
+    from . import export_ops
+    if export_ops.exporting():
+        out.copy_(export_ops.scan_op(b, init, axis, backward, a_const, a))
+        return out
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (b, init, a)):
+        # init may be a view of the tensor `out` is a span of: the copy
+        # below would write over what the backward reads
+        out.copy_(_ScanGrad.apply(b, init.clone(), a, axis, backward,
+                                  a_const))
+        return out
     if out.device.type == "cpu":
         out.copy_(linear_scan_plain(b, init, axis, backward, a_const, a))
         return out
     return launch(out, b, init, axis, backward, a_const, a)
+
+
+class _ScanGrad(torch.autograd.Function):
+    """The scan under autograd; its backward is a scan too, through the
+    same wrapper (the kernel on the card). For y[i] = a[i] y[p(i)] + b[i]
+    (p(i) the previous element along the scan's direction, y[p(first)] =
+    init), the adjoint z = dL/db obeys z[i] = g[i] + a[n(i)] z[n(i)] (n(i)
+    the next element): the scan of g in the other direction with the
+    coefficients moved by one element (0 past the end). Then dL/da[i] =
+    z[i] y[p(i)] and dL/dinit = a[first] z[first], summed over init's
+    broadcast dims."""
+
+    @staticmethod
+    def forward(ctx, b, init, a, axis, backward, a_const):
+        y = torch.empty_like(b, memory_format=torch.contiguous_format)
+        linear_scan(y, b.detach(), init.detach(),
+                    axis, backward, a_const,
+                    a.detach() if a is not None else None)
+        ctx.axis, ctx.backward, ctx.a_const = axis, backward, a_const
+        ctx.save_for_backward(y, init, a)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, init, a = ctx.saved_tensors
+        axis, backward, a_const = ctx.axis, ctx.backward, ctx.a_const
+        n = y.shape[axis]
+        first = n - 1 if backward else 0
+        g = g.contiguous()
+        z = torch.empty_like(g)
+        zero = torch.zeros_like(init.expand(
+            y.shape[:axis] + (1,) + y.shape[axis + 1:]))
+        a_next = None
+        if a is not None:
+            # the coefficient of the element after i along the scan
+            a_full = a.expand(y.shape)
+            pad = torch.zeros_like(a_full.narrow(axis, 0, 1))
+            a_next = (torch.cat([pad, a_full.narrow(axis, 0, n - 1)], axis)
+                      if backward else
+                      torch.cat([a_full.narrow(axis, 1, n - 1), pad], axis))
+            a_next = a_next.contiguous()
+        linear_scan(z, g, zero, axis, not backward, a_const, a_next)
+        coef = (a.expand(y.shape).narrow(axis, first, 1)
+                if a is not None else a_const)
+        d_init = coef * z.narrow(axis, first, 1)
+        d_init = d_init.sum_to_size(init.shape)
+        d_a = None
+        if a is not None and ctx.needs_input_grad[2]:
+            init_full = init.expand(y.shape[:axis] + (1,)
+                                    + y.shape[axis + 1:])
+            y_prev = (torch.cat([y.narrow(axis, 1, n - 1), init_full], axis)
+                      if backward else
+                      torch.cat([init_full, y.narrow(axis, 0, n - 1)], axis))
+            d_a = (z * y_prev).sum_to_size(a.shape)
+        return z, d_init, d_a, None, None, None
 
 
 def _gnm(t: torch.Tensor, axis: int) -> torch.Tensor:

@@ -562,13 +562,16 @@ class Pipeline:
             restore(undo)
 
     def _build_fn(self, g: _Graph, regions, input_objs, param_vals, dev):
-        """-> run(input tensors, memo presets, groups) -> per output, a
-        tuple of tensors. The bounds pass and the group plans are made on
-        the first run and kept (the planned graph, `run.planned`); with
-        `groups` False every group is evaluated whole-array."""
+        """-> run(input tensors, memo presets, groups, traced) -> per
+        output, a tuple of tensors. The bounds pass and the group plans are
+        made on the first run and kept (the planned graph, `run.planned`);
+        with `groups` False every group is evaluated whole-array. `traced`
+        maps id(Param) to a 0-d tensor that takes the Param's place in the
+        evaluation (derivative.propagate_adjoints: the bounds and the
+        plans still see its value)."""
         planned: dict = {}
 
-        def run(inp_arrays, presets=None, groups=True):
+        def run(inp_arrays, presets=None, groups=True, traced=None):
             from .ops import group_kernel
             presets = presets or {}
             realizations: Dict[int, Realized] = {}
@@ -583,7 +586,8 @@ class Pipeline:
                 planned["groups"] = {}
             boxes = planned["boxes"]
             trace = self.trace
-            ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev, trace=trace)
+            ctx0 = Ctx(0, {}, {}, realizations,
+                       {**param_vals, **(traced or {})}, dev, trace=trace)
 
             def record(fn, b, arrays):
                 fs = fn._fschedule
@@ -925,6 +929,12 @@ class Pipeline:
             prev = cum
         return _FusedReport(total_ms=prev, funcs=entries)
 
+    def apply_autoscheduler(self, target=None, params=None):
+        """Schedule the pipeline with a registered autoscheduler
+        (`params["name"]`, Mullapudi2016 by default; autoschedule.py)."""
+        from .autoschedule import apply_autoscheduler
+        return apply_autoscheduler(self, target, params)
+
     def get_func(self, i):
         g = gather_graph(self.outputs)
         return g.funcs[i]
@@ -999,7 +1009,12 @@ def _bytes(a: torch.Tensor) -> bytes:
 def _owned(arrays, ctx0: Ctx) -> List[torch.Tensor]:
     """The tensors an update may write in place: contiguous, and copied
     where one aliases an input, another Func's realization or another value
-    of the same Func."""
+    of the same Func (all copied while a program is exported: a traced
+    tensor has no storage to compare)."""
+    from .ops.export_ops import exporting
+    if exporting():
+        return [a.clone(memory_format=torch.contiguous_format)
+                for a in arrays]
     taken = {a.untyped_storage().data_ptr()
              for real in ctx0.realizations.values() for a in real.arrays}
     out = []

@@ -20,7 +20,8 @@ import os
 from typing import FrozenSet, Optional
 
 __all__ = ["Target", "get_host_target", "get_jit_target_from_environment",
-           "get_target_from_environment"]
+           "get_target_from_environment", "FITTED_COST",
+           "fitted_cost_params"]
 
 _KNOWN_ARCH = {"cuda", "cpu", "host"}
 _KNOWN_GEN = {"sm_90", "generic"}
@@ -105,6 +106,48 @@ def get_host_target() -> Target:
                 gen = "sm_90"
         _host_cache = Target(arch=arch, generation=gen)
     return Target(arch=_host_cache.arch, generation=_host_cache.generation)
+
+
+# ---------------------------------------------------------------------------
+# Fitted autoscheduler cost-model coefficients, per card generation (the
+# reference trains its cost model against measured runtimes,
+# adams2019/DefaultCostModel.cpp:180; here the three terms of the analytical
+# model are measured instead).
+# `python -m halide_tpu_torch.tools.fitcost` measures on the card (a) the
+# device-memory rate of a triad, (b) the f32 rate of a multiply-add chain
+# inside the stencil-group kernel K1 (a tiled one-stage group whose body is
+# the chain: where an inlined Func runs under the tiled schedules the
+# autoscheduler writes), and (c) the slowdown of a pass that reads a
+# producer at stride 2 on both x and y, fused (inlined) against split
+# (compute_root), through the DSL. `ops_per_byte` is (b) over (a).
+# `smem_budget` is the shared memory one K1 block may take, as K1's planner
+# reckons it (group_kernel._SMEM_LIMIT). One row: a generation not listed
+# (and the CPU) takes the sm_90 row, the one card measured.
+# ---------------------------------------------------------------------------
+FITTED_COST = {
+    # tools/fitcost.py on an NVIDIA H100 80GB HBM3, power limit 700.00 W,
+    # 2026-10-17 (torch 2.11.0+cu128): triad 2834 GB/s; K1 chain 0.0617 ->
+    # 0.1760 ms for 16 -> 128 multiply-adds a point at 4096x4096, 32.89 T
+    # f32 ops/s; dual-strided fused 0.2250 ms against split 0.1376 ms
+    "sm_90": {"ops_per_byte": 11.6, "strided_penalty": 1.6,
+              "smem_budget": 227 * 1024},
+}
+
+
+def fitted_cost_params(generation: str = None) -> dict:
+    """Cost-model coefficients for the host (or named) generation, with the
+    JAX package's env overrides for calibration runs
+    (HT_COST_OPS_PER_BYTE, HT_COST_STRIDED_PENALTY, HT_COST_VMEM_BUDGET;
+    the last sets the shared-memory budget here)."""
+    gen = generation or get_host_target().generation
+    p = dict(FITTED_COST.get(gen, FITTED_COST["sm_90"]))
+    for key, env in (("ops_per_byte", "HT_COST_OPS_PER_BYTE"),
+                     ("strided_penalty", "HT_COST_STRIDED_PENALTY"),
+                     ("smem_budget", "HT_COST_VMEM_BUDGET")):
+        v = os.environ.get(env)
+        if v:
+            p[key] = float(v)
+    return p
 
 
 def get_target_from_environment() -> Target:

@@ -245,18 +245,23 @@ def _imm_value(e: Expr):
 def _const_number(e: Expr, ctx: Ctx):
     """The value of an Expr that reads no variable, Func or input (a scan's
     constant coefficient), computed on the host, else None."""
-    try:
-        v = evaluate(e, Ctx(0, {}, {}, {}, ctx.params, "cpu"))
-    except CompileError:
-        return None
-    if isinstance(v, AVal):
-        return float(v.const) if v.is_const() else None
-    if isinstance(v, torch.Tensor) and v.numel() == 1:
-        return float(v.reshape(()))
+    from .ops.export_ops import host_constant
+    with host_constant():
+        try:
+            v = evaluate(e, Ctx(0, {}, {}, {}, ctx.params, "cpu"))
+        except CompileError:
+            return None
+        if isinstance(v, AVal):
+            return float(v.const) if v.is_const() else None
+        if isinstance(v, torch.Tensor) and v.numel() == 1:
+            return float(v.reshape(()))
     return None
 
 
 def _shares(v: torch.Tensor, cur: torch.Tensor) -> bool:
+    from .ops.export_ops import exporting
+    if exporting():
+        return True      # a traced tensor has no storage to compare: copy
     return v.untyped_storage().data_ptr() == cur.untyped_storage().data_ptr()
 
 
