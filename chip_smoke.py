@@ -117,7 +117,25 @@ Then it drives the port's main paths through `App.bind` /
   at 1536x2560 (`grad_stencil`: its forward one K1 launch, whose output
   is held against the plain version and realize's; the gradient, which
   the backward computes by the plain version's recomputation, against the
-  port on the CPU within rtol 1e-5).
+  port on the CPU within rtol 1e-5);
+- then the `distribute` phase: blur's 3x3 box with its edges repeated
+  (`sharded_blur`, 2560x1536 u16, tiled 256x128) with `distribute(y)`
+  realized over a mesh of 4 shard slots of the card (parallel.Mesh):
+  one K1 launch a shard, each held against its plain version, the whole
+  bit for bit against the unsharded realize and numpy, both realizes
+  timed in turns; the histogram of a 1536x2560 int32 image into 256 bins
+  with `distribute(r.y)`, bit for bit against torch.bincount, with the
+  route its shards' updates took; and `parallel.dryrun_multichip(4)`;
+- the `resnet_50` phase: the canonical network (layers (3,4,6,3), width
+  64, 1000 classes, 224x224, batch 4; random weights from a seed)
+  against its numpy golden at the app's tolerance, its logits normwise
+  within 1e-4 (LOGITS_RTOL), beside a TF32 control run of the same
+  network that must exceed that limit, every conv2d on the convolution
+  path and fc on the einsum path, the planning and the cached realize on the host clock,
+  the realize by CUDA events with its TFLOP/s, the device time of its
+  convolution and einsum calls timed alone, and its breakdown;
+- the `tutorials` phase: each lesson of tutorials_torch/ run with
+  main("cuda"), with its seconds and the K1 launches of all 30.
 
 Each kernel's launch count is set to 0 just before its path's realize and
 must have the expected value just after (for K1, with no rejected plan, and
@@ -145,6 +163,7 @@ the line before that the card's name and power limit.
 import copy
 import json
 import math
+import os
 import signal
 import statistics
 import subprocess
@@ -159,6 +178,10 @@ T0 = time.time()
 PHASE = ["start"]
 PHASE_T = [T0]
 DEADLINE_S = 600
+DIST_SHARDS = 4               # shard slots on the card in phase distribute
+# resnet_50's logits, max |err| / max |logit| against the numpy golden: the
+# f32 network reads ~7e-7 on an H100; a TF32 control run must exceed this
+LOGITS_RTOL = 1e-4
 PROFILE_ATTEMPTS = 3          # profiles of a realize before `breakdown` fails
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 # f32 operations outside the tensor cores: the data sheet's 67 TFLOP/s
@@ -1586,6 +1609,306 @@ def slice3_tools(card, timer, dev, apps):
     return out
 
 
+def sharded_blur(m, width, height, tile, distribute):
+    """blur's 3x3 box (apps/blur.py) centred, over a width x height u16
+    ImageParam `input` with its edges repeated, so that the output has the
+    input's size and a `distribute(y)` can shard both; blur_y tiled by
+    `tile`, blur_x computed at its tiles (one K1 group). -> (pipeline,
+    input)."""
+    x, y = m.Var("x"), m.Var("y")
+    xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
+    inp = m.ImageParam(m.UInt(16), 2, "input")
+    cl = m.repeat_edge(inp)
+    bx, by = m.Func("blur_x"), m.Func("blur_y")
+    bx[x, y] = (cl[x - 1, y] + cl[x, y] + cl[x + 1, y]) / 3
+    by[x, y] = (bx[x, y - 1] + bx[x, y] + bx[x, y + 1]) / 3
+    by.tile(x, y, xo, yo, xi, yi, tile[0], tile[1]).vectorize(xi) \
+      .parallel(yo)
+    bx.compute_at(by, xo)
+    if distribute:
+        by.distribute(y, "shards")
+    return m.Pipeline(by), inp
+
+
+def distribute_phase(card, timer, ktimer, dev, width, height, tile, n,
+                     hist_shape, bins, seed=0):
+    """The sharded realize on a mesh of n shard slots of `dev` (one card):
+    blur (`sharded_blur`) with distribute(y), each shard one K1 launch
+    (counted), each launch held against its plain version, the whole bit
+    for bit against the unsharded realize and numpy, both realizes timed
+    in turns; the histogram with distribute(r.y), bit for bit against
+    torch.bincount, with the route each shard's update took (K3 launches
+    or a scatter); and `parallel.dryrun_multichip(n)`. `timer(fn, k)` is
+    the median of k calls to completion from an idle card (L2 flushed),
+    `ktimer` the same with the card held (device time). -> (the phase's
+    numbers, the K1 row's numbers)."""
+    import halide_tpu_torch as ht
+    from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import rowhist_kernel as rk
+    from halide_tpu_torch.parallel import Mesh
+    from halide_tpu_torch.parallel.dryrun import (dryrun_multichip,
+                                                  sharded_histogram)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = Mesh([dev] * n, ("shards",))
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 1 << 14, (height, width), np.uint16)
+    t_img = torch.from_numpy(img).to(dev)
+    p_s, in_s = sharded_blur(ht, width, height, tile, True)
+    p_1, in_1 = sharded_blur(ht, width, height, tile, False)
+    in_s.set(t_img)
+    in_1.set(t_img)
+    sizes = [width, height]
+    gk.launches = 0
+    gk.rejects.clear()
+    out, calls = capture(gk, "compute",
+                         lambda: p_s.realize(sizes, mesh=mesh))
+    sync()
+    launched, rejects = gk.launches, dict(gk.rejects)
+    want, calls_1 = capture(gk, "compute",
+                            lambda: p_1.realize(sizes, device=dev))
+    sync()
+    say(f"blur {width}x{height} u16 tiled {tile[0]}x{tile[1]}, "
+        f"distribute(y) over {n} shards of {dev}: K1 launches {launched}, "
+        f"rejects {rejects}, group calls {len(calls)}")
+    if rejects or len(calls) != n or (dev.type == "cuda"
+                                      and launched != n):
+        raise SystemExit(f"distribute: {n} shards launched K1 {launched} "
+                         f"times in {len(calls)} group calls (rejects "
+                         f"{rejects})")
+    if not torch.equal(out.data, want.data):
+        raise SystemExit("distribute: the sharded blur differs from the "
+                         "unsharded realize")
+    p = np.pad(img.astype(np.uint16), 1, mode="edge")
+    bx = (p[:, :-2] + p[:, 1:-1] + p[:, 2:]) // 3
+    golden = (bx[:-2] + bx[1:-1] + bx[2:]) // 3
+    check_golden("sharded blur", out.to_numpy(), golden, 0, 0)
+    err = k_ms = p_ms = 0.0
+    nbytes = f32_ops = int_ops = 0
+    shards = []
+    for k, (args, _kw) in enumerate(calls):
+        plan, inputs, rmins, params, _d = args
+        got = gk.compute(plan, inputs, rmins, params, dev)
+        sync()
+        t0 = time.perf_counter()
+        plain = gk.run_plain(plan, inputs, rmins, params, dev)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        e = (got.double() - plain.double()).abs().max().item()
+        rec = plan.record()
+        say(f"shard {k}: K1 over {list(plan.extents)} from mins {rmins}, "
+            f"sub-tiles {rec['sub_tiles']}, grid {rec['grid']}, threads "
+            f"{rec['threads']}: max abs err against its plain version "
+            f"{e!r} (none allowed)")
+        if e != 0:
+            raise SystemExit(f"distribute: shard {k}'s K1 disagrees with "
+                             "its plain version")
+        t = ktimer(lambda: gk.compute(plan, inputs, rmins, params, dev),
+                   30)
+        err, k_ms, p_ms = max(err, e), k_ms + t, p_ms + ms
+        nbytes += window_bytes(plan, inputs, rmins) \
+            + int(np.prod(plan.extents)) * gk.itemsize(plan.out_type)
+        f, i = count_ops(plan)
+        f32_ops, int_ops = f32_ops + f, int_ops + i
+        shards.append({"extents": list(plan.extents), "mins": rmins,
+                       "sub_tiles": rec["sub_tiles"], "grid": rec["grid"],
+                       "threads": rec["threads"], "ms": t})
+    # the unsharded realize's one K1 launch, for the shards' sum
+    (plan1, inputs1, rmins1, params1, _d), _kw = calls_1[0]
+    k1_ms = ktimer(lambda: gk.compute(plan1, inputs1, rmins1, params1, dev),
+                   30)
+    # the two realizes in turns: unsharded, sharded, sharded, unsharded
+    r1 = [timer(lambda: p_1.realize(sizes, device=dev), 10)]
+    rs = [timer(lambda: p_s.realize(sizes, mesh=mesh), 10)
+          for _ in range(2)]
+    r1.append(timer(lambda: p_1.realize(sizes, device=dev), 10))
+    say(f"blur on {card}: sharded realize {rs} ms, unsharded {r1} ms (in "
+        f"turns u, s, s, u); K1 over the {n} shards {k_ms:.4f} ms, the "
+        f"unsharded realize's one launch {k1_ms:.4f} ms (device)")
+
+    # the sharded histogram
+    H, W = hist_shape
+    himg = rng.integers(0, bins, (H, W)).astype(np.int32)
+    t_h = torch.from_numpy(himg).to(dev)
+    ph = sharded_histogram(t_h, bins)
+    gk.launches = rk.launches = 0
+    hout = ph.realize([bins], mesh=mesh)
+    sync()
+    k3 = rk.launches
+    route = {0: "scatter (scatter_add_ into int64 bins)",
+             n: "K3 (one row histogram a shard)"}.get(k3)
+    want_h = torch.bincount(t_h.flatten(), minlength=bins).to(torch.int32)
+    say(f"histogram {W}x{H} int32, {bins} bins, distribute(r.y) over {n} "
+        f"shards: K3 launches {k3}, K1 {gk.launches}: each shard's update "
+        f"by {route}")
+    if route is None or gk.launches:
+        raise SystemExit(f"distribute: the histogram's shards launched K3 "
+                         f"{k3} times and K1 {gk.launches}")
+    if not torch.equal(hout.data.to(torch.int32), want_h):
+        raise SystemExit("distribute: the sharded histogram differs from "
+                         "torch.bincount")
+    ph1 = sharded_histogram(t_h, bins)    # realized without a mesh
+    h1 = [timer(lambda: ph1.realize([bins], device=dev), 10)]
+    hs = [timer(lambda: ph.realize([bins], mesh=mesh), 10)
+          for _ in range(2)]
+    h1.append(timer(lambda: ph1.realize([bins], device=dev), 10))
+    lib = timer(lambda: torch.bincount(t_h.flatten(), minlength=bins), 10)
+    say(f"histogram on {card}: sharded realize {hs} ms, unsharded {h1} ms "
+        f"(in turns), torch.bincount {lib:.4f} ms (to completion)")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(n, dev)
+    sync()
+    say(f"dryrun_multichip({n}, {str(dev)!r}): {dry} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    summary = {"blur": {"shape": [height, width], "tile": list(tile),
+                        "shards": n, "k1_launches": launched,
+                        "sharded_realize_ms": rs,
+                        "unsharded_realize_ms": r1, "per_shard": shards,
+                        "unsharded_k1_ms": k1_ms},
+               "hist": {"shape": [H, W], "bins": bins, "k3_launches": k3,
+                        "route": route, "sharded_realize_ms": hs,
+                        "unsharded_realize_ms": h1, "bincount_ms": lib},
+               "dryrun": dry}
+    row = dict(launches=launched, err=err, k_ms=k_ms, p_ms=p_ms,
+               nbytes=nbytes, ops=(f32_ops, int_ops),
+               realize_ms=statistics.median(rs),
+               unsharded_realize_ms=statistics.median(r1),
+               unsharded_k1_ms=k1_ms, shards=shards)
+    return summary, row
+
+
+def resnet_phase(card, timer, ktimer, dev, **kw):
+    """resnet_50 (models/resnet50.py through apps/resnet_50.py; `kw` its
+    build arguments, the canonical network by default) on `dev`: the first
+    (planning) realize and the cached one timed apart on the host clock,
+    the output against the numpy golden at the app's tolerance, each
+    update's lowering (every conv2d the convolution path, fc the einsum
+    path; none unrolled or dense), the realize (`timer`) and its TFLOP/s
+    from `App.flops`, the device time of its convolution and einsum calls
+    timed alone (`ktimer`, at full precision as the port runs them), and
+    the realize's breakdown by device time. -> the phase's numbers."""
+    from halide_tpu_torch import eval_torch
+    from halide_tpu_torch.apps import get as app_get
+    from halide_tpu_torch.ops import group_kernel as gk
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    app = app_get("resnet_50")(**kw)
+    data = app.make_inputs(0)
+    app.bind(data, dev)
+    setup_s = time.perf_counter() - t0
+    gk.launches = 0
+    t0 = time.perf_counter()
+    app.realize(dev)
+    sync()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    app.realize(dev)
+    sync()
+    cached_s = time.perf_counter() - t0
+    real = app.realize
+    app.realize = lambda device=None: real(dev)
+    row = reduction_app(app, data, f"resnet_50 {kw or 'canonical'}")
+    paths = row["paths"]
+    say("resnet_50: each update's lowering: " + ", ".join(
+        f"{k} {v}" for k, v in paths.items()))
+    bad = {k: v for k, v in paths.items()
+           if v != ("einsum" if k == "fc" else "conv")}
+    if bad:
+        raise SystemExit(f"resnet_50: layers off the contraction paths: "
+                         f"{bad}")
+    # the logits (fc's output), held normwise: the softmax of the random
+    # network is one-hot to within its atol, so only the logits can tell
+    # f32 from TF32. The limit lies between the f32 reading and that of a
+    # TF32 control run of the same network (HT_PRECISION=default, TF32
+    # allowed), which must exceed it: the check is shown to separate them
+    # in this run
+    from halide_tpu_torch import Pipeline
+    from halide_tpu_torch.pipeline import gather_graph
+    fc = next(f for f in gather_graph(app.pipeline.outputs).funcs
+              if f.name == "fc")
+    lg_ref = app.logits_reference(**data)
+    p_fc = Pipeline(fc)
+
+    def logits_err():
+        lg = p_fc.realize(app.output_sizes, device=dev).to_numpy()
+        return float(np.abs(lg - lg_ref).max() / np.abs(lg_ref).max())
+
+    lg_err = logits_err()
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = (os.environ.get("HT_PRECISION"), mm.allow_tf32, dnn.allow_tf32)
+    os.environ["HT_PRECISION"] = "default"
+    mm.allow_tf32 = dnn.allow_tf32 = True
+    try:
+        tf32_err = logits_err()
+    finally:
+        if saved[0] is None:
+            os.environ.pop("HT_PRECISION", None)
+        else:
+            os.environ["HT_PRECISION"] = saved[0]
+        mm.allow_tf32, dnn.allow_tf32 = saved[1:]
+    say(f"resnet_50 logits: max |got - numpy| / max |numpy| {lg_err!r} "
+        f"(allowed {LOGITS_RTOL}); the TF32 control run's {tf32_err!r} "
+        f"(must exceed it); largest |logit| "
+        f"{float(np.abs(lg_ref).max())!r}")
+    if not lg_err <= LOGITS_RTOL:
+        raise SystemExit(f"resnet_50: logits off the numpy golden by "
+                         f"{lg_err}")
+    if dev.type == "cuda" and not tf32_err > LOGITS_RTOL:
+        raise SystemExit(f"resnet_50: the TF32 control run's logits "
+                         f"({tf32_err}) pass the limit {LOGITS_RTOL}")
+    r_ms = timer(app.realize, 10)
+    with eval_torch.contract_precision():
+        conv_ms = sum(ktimer(
+            lambda a=a, k=k: torch.nn.functional.conv2d(*a, **k), 10)
+            for a, k in row["convs"])
+        einsum_ms = sum(ktimer(lambda a=a, k=k: torch.einsum(*a, **k), 10)
+                        for a, k in row["einsums"])
+    out = {"setup_s": setup_s, "first_realize_s": first_s,
+           "cached_realize_s": cached_s, "logits_rel_err": lg_err,
+           "logits_rel_err_tf32_control": tf32_err,
+           "realize_ms": r_ms,
+           "gflop": app.flops / 1e9,
+           "realize_tflops": app.flops / r_ms / 1e9,
+           "convs": len(row["convs"]), "conv_ms": conv_ms,
+           "einsums": len(row["einsums"]), "einsum_ms": einsum_ms,
+           "library_tflops": app.flops / (conv_ms + einsum_ms) / 1e9,
+           "inline": row["inline"], "k1_launches": gk.launches}
+    say(f"resnet_50 on {card}: " + json.dumps(out))
+    if dev.type == "cuda":
+        breakdown(app)
+    return out
+
+
+def tutorials_phase(dev):
+    """Every lesson of tutorials_torch/ run with main(dev), loaded by path
+    under a name of its own. -> {lesson: seconds}."""
+    import importlib.util
+    import pathlib
+    d = pathlib.Path(__file__).resolve().parent / "tutorials_torch"
+    secs = {}
+    for p in sorted(d.glob("lesson_*.py")):
+        spec = importlib.util.spec_from_file_location(
+            f"halide_tpu_torch_tutorial_{p.stem}", p)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main(str(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[p.stem] = round(time.perf_counter() - t0, 3)
+    if len(secs) != 30:
+        raise SystemExit(f"tutorials: {len(secs)} lessons, not 30")
+    return secs
+
+
 def kernel_row(name, source, replaces, launches, err, k_ms, p_ms, nbytes,
                ops, lib_ms, **extra):
     """One row of the kernel table. `ops` is (f32, integer) operations:
@@ -1740,6 +2063,17 @@ def main():
     grad_by, grad_kw = grad_stencil(ht, 1536, 2560, (256, 128))
     app_gr = App("grad", ht.Pipeline(grad_by), [], lambda seed=0: {}, None,
                  [1536, 2560])
+    # the distribute phase's blur, planned in its shards' coordinates: one
+    # K1 source serves every shard (the phase builds the same pipeline
+    # again, whose source hashes to the same build)
+    from halide_tpu_torch.parallel import Mesh
+    mesh_ds = Mesh(["cuda:0"] * DIST_SHARDS, ("shards",))
+    p_ds, in_ds = sharded_blur(ht, 2560, 1536, (256, 128), True)
+    in_ds.set(torch.from_numpy(np.zeros((1536, 2560), np.uint16)).cuda())
+    app_ds = App("blur_sharded", p_ds, [], lambda seed=0: {}, None,
+                 [2560, 1536])
+    app_ds.realize = lambda device=None: p_ds.realize([2560, 1536],
+                                                      mesh=mesh_ds)
     plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
                          app_c64, app_8, app_unt, app_hrt, app_nl, app_co,
                          app_bg, app_bgu, app_sp, app_cm, app_e, app_tr,
@@ -1747,7 +2081,7 @@ def main():
                         + list(apps_in.values()) + list(apps_h.values())
                         + [a for _m, _d, au in auto.values()
                            for a, _r in au.values()]
-                        + app_ts + app_ch + [app_gr])
+                        + app_ts + app_ch + [app_gr, app_ds])
     # the carried groups planned again with no carry, at the same sub-tile
     # and threads and at the rule's own: built with the rest, timed beside
     # the carried ones
@@ -2390,6 +2724,43 @@ def main():
                     ("hist", app_h, ["width=1536", "height=2560"], "K3")],
          "grad": (grad_by, grad_kw)})
     say(f"slice3_tools on {card}: " + json.dumps(tools))
+
+    # blur sharded over a mesh of shard slots on this card, each shard one
+    # K1 launch; the sharded histogram; the port's multichip dry run
+    phase("distribute")
+    cuda = torch.device("cuda")
+
+    def timer(fn, n):
+        return event_ms(fn, n, flush)
+
+    def ktimer(fn, n):
+        return event_ms(fn, n, flush, hold=True)
+
+    dist, dr = distribute_phase(card, timer, ktimer, cuda, 2560, 1536,
+                                (256, 128), DIST_SHARDS, (2560, 1536), 256)
+    kernels.append(kernel_row(
+        f"K1 stencil group (blur, distribute(y) over {DIST_SHARDS} shards "
+        "of one card)", "halide_tpu_torch/ops/group_kernel.py",
+        "halide_tpu/ops/pallas_group.py:696", dr["launches"], dr["err"],
+        dr["k_ms"], dr["p_ms"], dr["nbytes"], dr["ops"], None,
+        realize_ms=dr["realize_ms"],
+        unsharded_realize_ms=dr["unsharded_realize_ms"],
+        unsharded_k1_ms=dr["unsharded_k1_ms"], shards=dr["shards"],
+        library_note="no single PyTorch call computes a fused group"))
+    say(f"distribute on {card}: " + json.dumps(dist))
+
+    # resnet_50 at the app's canonical size through the convolution and
+    # einsum paths
+    phase("resnet_50")
+    rn = resnet_phase(card, timer, ktimer, cuda)
+    say(f"resnet_50 on {card}: " + json.dumps(rn))
+
+    # the port's 30 lessons, each main("cuda")
+    phase("tutorials")
+    gk.launches = 0
+    secs = tutorials_phase(cuda)
+    say(f"tutorials on {card}: K1 launches {gk.launches} over the 30 "
+        f"lessons; seconds {json.dumps(secs)}")
 
     phase("kernels")
     signal.alarm(0)

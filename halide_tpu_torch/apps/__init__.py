@@ -22,7 +22,8 @@ _APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
                 "local_laplacian", "stencil_chain", "camera_pipe", "unsharp",
                 "harris", "wavelet", "gaussian_blur", "max_filter", "nl_means",
                 "conv_layer", "linear_algebra", "fft", "compositing",
-                "bilateral_grid", "bgu", "resize", "lens_blur"]
+                "bilateral_grid", "bgu", "resize", "lens_blur",
+                "resnet_50"]
 
 
 def register(name: str):

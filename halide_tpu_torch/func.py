@@ -703,9 +703,13 @@ class Func:
 
     # ---- multi-chip -------------------------------------------------------
     def distribute(self, var, axis_name: str = "devices") -> "Func":
-        """Shard this (output) Func's `var` dimension across devices. The
-        directive is recorded; the multi-device realize comes with
-        ROADMAP queue 1, item 17 (parallel/distribute)."""
+        """Shard this (output) Func's `var` across the mesh axis
+        `axis_name`. `realize(..., mesh=m)` then splits a pure dimension
+        into one slab a shard, each with its halo rows from its neighbours
+        (global edges repeated), or a reduction var into one slice of the
+        RDom a shard, whose partials are combined in shard order
+        (parallel/distribute.py). Without a mesh the directive is
+        ignored."""
         name = var.name if hasattr(var, "name") else str(var)
         is_pure = any(v.name == name for v in self._args)
         is_rvar = any(
@@ -802,6 +806,8 @@ class Func:
 
     # ---- execution --------------------------------------------------------
     def realize(self, sizes=None, target=None, **kw):
+        """Pipeline(self).realize: `dst`, `jit`, `device`, `mesh`,
+        `custom_print` and `custom_error` pass through by keyword."""
         from .pipeline import Pipeline
         return Pipeline(self).realize(sizes, target=target, **kw)
 

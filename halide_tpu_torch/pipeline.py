@@ -415,6 +415,9 @@ class Pipeline:
                             for dm in d.schedule.dims) for d in f._defs),
                 tuple((b.var, repr(b.min), repr(b.extent))
                       for b in fs.bounds),
+                tuple(tuple((rv.name, repr(rv.rmin), repr(rv.rextent))
+                            for rv in d.rdom.dims)
+                      for d in f._defs if d.rdom is not None),
                 fs.memoized, fs.debug_file,
             ))
         return tuple(sig)
@@ -465,10 +468,23 @@ class Pipeline:
             input_objs.append((t, buf))
         return input_objs
 
-    def realize(self, sizes=None, target=None, dst=None, device=None,
-                custom_print=None, custom_error=None):
+    def realize(self, sizes=None, target=None, dst=None, jit: bool = True,
+                device=None, mesh=None, custom_print=None,
+                custom_error=None):
         """Realize the outputs over `sizes` (or over `dst`'s region) on
-        `device`: None means the card, and raises where there is none.
+        `device`: None means the card, and raises where there is none. The
+        arguments come in the JAX package's order.
+
+        `jit` selects nothing: realize is eager either way (a planned
+        realize runs the plan cache's `run`, launch by launch). It is taken
+        so that calls written for the JAX package run unchanged.
+
+        `mesh` (a `parallel.Mesh`) with a `distribute()` record on the first
+        output shards the realize over the record's mesh axis: the spatial
+        path with halo exchange, or the reduction path with partials
+        combined in shard order (`parallel.distribute.distributed_realize`);
+        each shard runs on its slot's device, and `device` is not read. A
+        mesh without a record is ignored, as in the JAX package.
 
         `target` (a Target or its string) is read as the JAX package reads
         it: `trace_all` arms a trace of every Func for this call,
@@ -487,7 +503,9 @@ class Pipeline:
             prev_e = hooks.set_error_handler(custom_error) \
                 if custom_error is not None else None
             try:
-                return self.realize(sizes, target, dst, device)
+                return self.realize(sizes=sizes, target=target,
+                                    dst=dst, jit=jit, device=device,
+                                    mesh=mesh)
             finally:
                 if custom_print is not None:
                     hooks.set_custom_print(prev_p)
@@ -498,6 +516,20 @@ class Pipeline:
             target = get_jit_target_from_environment()
         elif isinstance(target, str):
             target = Target(target)
+        dist = self.outputs[0]._fschedule.distributed
+        if mesh is not None and dist is not None:
+            from .parallel.distribute import distributed_realize
+            var_name, axis_name = dist
+            datas = distributed_realize(self, sizes, mesh, axis_name,
+                                        var_name)
+            bufs = []
+            for f, d in zip(self.outputs, datas):
+                if isinstance(d, tuple):   # tuple-valued Func
+                    bufs.append(Realization(
+                        [Buffer(v, name=f.name) for v in d]))
+                else:
+                    bufs.append(Buffer(d, name=f.name))
+            return bufs[0] if len(bufs) == 1 else Realization(bufs)
         tr_installed = False
         if target.has_feature("trace_all") and self.trace is None:
             from .trace import Trace
@@ -520,8 +552,26 @@ class Pipeline:
     def _run(self, sizes, dst, device, groups: bool = True):
         """Plan (or fetch from the plan cache) and run the pipeline.
         -> (per output, a tuple of tensors; the requested regions)."""
-        from .specialize import apply_all, restore, select
+        from .specialize import apply_all, restore
         dev = resolve_device(device)
+        run, chosen, inp_arrays, presets, regions = self._prepare(
+            sizes, dst, dev)
+        # the chosen variants' directives hold while the plan is made and
+        # while it runs, and only then
+        undo = apply_all(chosen)
+        try:
+            return run(inp_arrays, presets, groups), regions
+        finally:
+            restore(undo)
+
+    def _prepare(self, sizes, dst, dev, memo: bool = True):
+        """The executor of the graph as its inputs are bound now, on `dev`,
+        from the plan cache or built and cached there: -> (run, the chosen
+        specializations, the input tensors on dev, the memoized stages'
+        presets, the requested regions). With `memo` False no stage is
+        fetched from the memo cache: `run` computes every one (the shards
+        of a distributed realize, prepared on dummy inputs)."""
+        from .specialize import select
         g = gather_graph(self.outputs)
         regions = self._out_regions(sizes, dst)
         input_objs = self._inputs(g)
@@ -536,11 +586,11 @@ class Pipeline:
         # memoized stages come from the host LRU cache before the run
         # (reference: src/Memoization.cpp + runtime/cache.cpp)
         presets = self._memo_precompute(g, input_objs, param_vals, regions,
-                                        dev)
+                                        dev) if memo else {}
         key = (self._signature(g), str(dev),
                tuple((b.mins(), b.extents()) for b in regions.values()),
-               tuple((tuple(buf.data.shape), buf.data.dtype, buf._mins)
-                     for (_, buf) in input_objs),
+               tuple((id(t), tuple(buf.data.shape), buf.data.dtype,
+                      buf._mins) for (t, buf) in input_objs),
                tuple(sorted((k, repr(v)) for k, v in param_vals.items())),
                id(self.trace) if self.trace is not None else 0,
                tuple((f._fschedule.trace_stores,
@@ -553,13 +603,7 @@ class Pipeline:
         if run is None:
             run = self._build_fn(g, regions, input_objs, param_vals, dev)
             self._plan_cache[key] = run
-        # the chosen variants' directives hold while the plan is made and
-        # while it runs, and only then
-        undo = apply_all(chosen)
-        try:
-            return run(inp_arrays, presets, groups), regions
-        finally:
-            restore(undo)
+        return run, chosen, inp_arrays, presets, regions
 
     def _build_fn(self, g: _Graph, regions, input_objs, param_vals, dev):
         """-> run(input tensors, memo presets, groups, traced) -> per
@@ -570,14 +614,16 @@ class Pipeline:
         evaluation (derivative.propagate_adjoints: the bounds and the
         plans still see its value)."""
         planned: dict = {}
+        # the inputs' mins as they are bound now (the cache key holds them)
+        in_mins = [(t, buf._mins) for (t, buf) in input_objs]
 
         def run(inp_arrays, presets=None, groups=True, traced=None):
             from .ops import group_kernel
             presets = presets or {}
             realizations: Dict[int, Realized] = {}
-            for (t, buf), arr in zip(input_objs, inp_arrays):
+            for (t, mins), arr in zip(in_mins, inp_arrays):
                 realizations[id(t)] = Realized(
-                    (arr,), buf._mins, getattr(t, "name", "buf"))
+                    (arr,), mins, getattr(t, "name", "buf"))
             for fid, (mins, arrs) in presets.items():
                 realizations[fid] = Realized(arrs, mins, "memo")
             if "boxes" not in planned:
