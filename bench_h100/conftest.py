@@ -1,0 +1,16 @@
+import pytest
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided here, never while a module is
+    imported."""
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return "cuda:0"
