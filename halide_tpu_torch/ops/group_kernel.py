@@ -173,6 +173,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from .. import expr as E
+from .. import spans
 from ..expr import CompileError
 from ..bounds import BoundsEngine, Box, Interval
 from ..eval_torch import (Axis, Ctx, Realized, edge_window, eval_array,
@@ -1322,26 +1323,31 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
     plan cannot take the schedule; the caller then evaluates the group
     whole-array. `cache` keeps the plan of each Func across realizes."""
     global last_plan
-    plan = cache.get(id(f))
-    if plan is None:
-        try:
-            plan = plan_group(f, box, ctx0, graph)
-        except GroupUnsupported as ex:
-            rejects[str(ex)] += 1
-            rejects_by_name[f.name] = str(ex)
-            plans_by_name.pop(f.name, None)
-            cache[id(f)] = False
+    with spans.span(spans.K1, f.name):
+        plan = cache.get(id(f))
+        if plan is None:
+            try:
+                with spans.span(spans.K1_PLAN, f.name):
+                    plan = plan_group(f, box, ctx0, graph)
+            except GroupUnsupported as ex:
+                rejects[str(ex)] += 1
+                rejects_by_name[f.name] = str(ex)
+                plans_by_name.pop(f.name, None)
+                cache[id(f)] = False
+                return None
+            # nothing the record reads changes once the plan is made
+            plan.recorded = plan.record()
+            cache[id(f)] = plan
+        elif plan is False:
             return None
-        cache[id(f)] = plan
-    elif plan is False:
-        return None
-    last_plan = plans_by_name[f.name] = plan.record()
-    rejects_by_name.pop(f.name, None)
-    inputs = [ctx0.realizations[id(w.target)].arrays[0]
-              for w in plan.windows]
-    real_mins = [ctx0.realizations[id(w.target)].mins for w in plan.windows]
-    out = compute(plan, inputs, real_mins, ctx0.params, ctx0.device)
-    return Realized((out,), plan.mins, f.name)
+        last_plan = plans_by_name[f.name] = plan.recorded
+        rejects_by_name.pop(f.name, None)
+        inputs = [ctx0.realizations[id(w.target)].arrays[0]
+                  for w in plan.windows]
+        real_mins = [ctx0.realizations[id(w.target)].mins
+                     for w in plan.windows]
+        out = compute(plan, inputs, real_mins, ctx0.params, ctx0.device)
+        return Realized((out,), plan.mins, f.name)
 
 
 # where set, `compute` hands each plan to this callable and computes
@@ -2502,20 +2508,21 @@ def launch(plan: GroupPlan, inputs, real_mins) -> torch.Tensor:
     """Launch the group kernel on CUDA tensors; the output is allocated
     here. Raises on a build, load or launch error."""
     global launches
-    for w, arr in zip(plan.windows, inputs):
-        if arr.device.type != "cuda":
-            raise ValueError(f"input {w.name} is not on the card")
-        if arr.dtype != torch_dtype(w.type):
-            raise ValueError(f"input {w.name}: {arr.dtype}, expected "
-                             f"{torch_dtype(w.type)}")
-    dev = inputs[0].device if inputs else torch.device("cuda")
-    fn = getattr(build(plan), f"launch_{plan.symbol}")
-    out = torch.empty(tuple(reversed(plan.extents)),
-                      dtype=torch_dtype(plan.out_type), device=dev)
-    rc = fn(*launch_args(plan, inputs, real_mins, out),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"group kernel launch_{plan.symbol} failed: "
-                           f"cudaError {rc}")
-    launches += 1
-    return out
+    with spans.span(spans.K1_LAUNCH, plan.f.name):
+        for w, arr in zip(plan.windows, inputs):
+            if arr.device.type != "cuda":
+                raise ValueError(f"input {w.name} is not on the card")
+            if arr.dtype != torch_dtype(w.type):
+                raise ValueError(f"input {w.name}: {arr.dtype}, expected "
+                                 f"{torch_dtype(w.type)}")
+        dev = inputs[0].device if inputs else torch.device("cuda")
+        fn = getattr(build(plan), f"launch_{plan.symbol}")
+        out = torch.empty(tuple(reversed(plan.extents)),
+                          dtype=torch_dtype(plan.out_type), device=dev)
+        rc = fn(*launch_args(plan, inputs, real_mins, out),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"group kernel launch_{plan.symbol} failed: "
+                               f"cudaError {rc}")
+        launches += 1
+        return out

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import expr as E
+from . import spans
 from .bounds import BoundsEngine, Box, Interval
 from .buffer import Buffer, ImageParam, Param, Realization
 from .eval_torch import Axis, Ctx, Realized, eval_array, full_shape, static_int
@@ -55,6 +56,8 @@ last_memo: dict = {}
 # inputs off the device, to run its callback and to copy the result back,
 # and the bytes each way
 last_extern: dict = {}
+# plan-cache lookups of every Pipeline's `_prepare` in this process
+plan_cache = {"hits": 0, "misses": 0}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -496,58 +499,59 @@ class Pipeline:
         reference's JITUserContext handler table,
         src/runtime/HalideRuntime.h:178-196, installed per call at
         Pipeline.cpp:818)."""
-        if custom_print is not None or custom_error is not None:
-            from . import hooks
-            prev_p = hooks.set_custom_print(custom_print) \
-                if custom_print is not None else None
-            prev_e = hooks.set_error_handler(custom_error) \
-                if custom_error is not None else None
+        with spans.span(spans.REALIZE):
+            if custom_print is not None or custom_error is not None:
+                from . import hooks
+                prev_p = hooks.set_custom_print(custom_print) \
+                    if custom_print is not None else None
+                prev_e = hooks.set_error_handler(custom_error) \
+                    if custom_error is not None else None
+                try:
+                    return self.realize(sizes=sizes, target=target,
+                                        dst=dst, jit=jit, device=device,
+                                        mesh=mesh)
+                finally:
+                    if custom_print is not None:
+                        hooks.set_custom_print(prev_p)
+                    if custom_error is not None:
+                        hooks.set_error_handler(prev_e)
+            from .target import Target, get_jit_target_from_environment
+            if target is None:
+                target = get_jit_target_from_environment()
+            elif isinstance(target, str):
+                target = Target(target)
+            dist = self.outputs[0]._fschedule.distributed
+            if mesh is not None and dist is not None:
+                from .parallel.distribute import distributed_realize
+                var_name, axis_name = dist
+                datas = distributed_realize(self, sizes, mesh, axis_name,
+                                            var_name)
+                bufs = []
+                for f, d in zip(self.outputs, datas):
+                    if isinstance(d, tuple):   # tuple-valued Func
+                        bufs.append(Realization(
+                            [Buffer(v, name=f.name) for v in d]))
+                    else:
+                        bufs.append(Buffer(d, name=f.name))
+                return bufs[0] if len(bufs) == 1 else Realization(bufs)
+            tr_installed = False
+            if target.has_feature("trace_all") and self.trace is None:
+                from .trace import Trace
+                for f in gather_graph(self.outputs).funcs:
+                    f._fschedule.trace_realizations = True
+                    f._fschedule.trace_stores = True
+                self.trace = Trace()
+                tr_installed = True
+            groups = not (target.has_feature("no_pallas")
+                          or target.has_feature("interpret"))
             try:
-                return self.realize(sizes=sizes, target=target,
-                                    dst=dst, jit=jit, device=device,
-                                    mesh=mesh)
+                arrays, regions = self._run(sizes, dst, device, groups)
             finally:
-                if custom_print is not None:
-                    hooks.set_custom_print(prev_p)
-                if custom_error is not None:
-                    hooks.set_error_handler(prev_e)
-        from .target import Target, get_jit_target_from_environment
-        if target is None:
-            target = get_jit_target_from_environment()
-        elif isinstance(target, str):
-            target = Target(target)
-        dist = self.outputs[0]._fschedule.distributed
-        if mesh is not None and dist is not None:
-            from .parallel.distribute import distributed_realize
-            var_name, axis_name = dist
-            datas = distributed_realize(self, sizes, mesh, axis_name,
-                                        var_name)
-            bufs = []
-            for f, d in zip(self.outputs, datas):
-                if isinstance(d, tuple):   # tuple-valued Func
-                    bufs.append(Realization(
-                        [Buffer(v, name=f.name) for v in d]))
-                else:
-                    bufs.append(Buffer(d, name=f.name))
-            return bufs[0] if len(bufs) == 1 else Realization(bufs)
-        tr_installed = False
-        if target.has_feature("trace_all") and self.trace is None:
-            from .trace import Trace
-            for f in gather_graph(self.outputs).funcs:
-                f._fschedule.trace_realizations = True
-                f._fschedule.trace_stores = True
-            self.trace = Trace()
-            tr_installed = True
-        groups = not (target.has_feature("no_pallas")
-                      or target.has_feature("interpret"))
-        try:
-            arrays, regions = self._run(sizes, dst, device, groups)
-        finally:
-            if tr_installed:
-                self.trace = None
-        if target.has_feature("profile"):
-            print(self.profile(sizes, dst, device=device))
-        return self._package(arrays, regions, dst)
+                if tr_installed:
+                    self.trace = None
+            if target.has_feature("profile"):
+                print(self.profile(sizes, dst, device=device))
+            return self._package(arrays, regions, dst)
 
     def _run(self, sizes, dst, device, groups: bool = True):
         """Plan (or fetch from the plan cache) and run the pipeline.
@@ -560,7 +564,8 @@ class Pipeline:
         # while it runs, and only then
         undo = apply_all(chosen)
         try:
-            return run(inp_arrays, presets, groups), regions
+            with spans.span(spans.RUN):
+                return run(inp_arrays, presets, groups), regions
         finally:
             restore(undo)
 
@@ -572,37 +577,49 @@ class Pipeline:
         fetched from the memo cache: `run` computes every one (the shards
         of a distributed realize, prepared on dummy inputs)."""
         from .specialize import select
-        g = gather_graph(self.outputs)
-        regions = self._out_regions(sizes, dst)
-        input_objs = self._inputs(g)
-        inp_arrays = [buf.data.to(dev) for (_, buf) in input_objs]
-        param_vals = {id(p): p.get() for p in g.params.values()}
-        chosen = []
-        if any(f._specializations for f in g.funcs):
-            chosen = select(g, {
-                id(t): Realized((a,), buf._mins, getattr(t, "name", "buf"))
-                for (t, buf), a in zip(input_objs, inp_arrays)},
-                param_vals, dev)
-        # memoized stages come from the host LRU cache before the run
-        # (reference: src/Memoization.cpp + runtime/cache.cpp)
-        presets = self._memo_precompute(g, input_objs, param_vals, regions,
-                                        dev) if memo else {}
-        key = (self._signature(g), str(dev),
-               tuple((b.mins(), b.extents()) for b in regions.values()),
-               tuple((id(t), tuple(buf.data.shape), buf.data.dtype,
-                      buf._mins) for (t, buf) in input_objs),
-               tuple(sorted((k, repr(v)) for k, v in param_vals.items())),
-               id(self.trace) if self.trace is not None else 0,
-               tuple((f._fschedule.trace_stores,
-                      f._fschedule.trace_realizations) for f in g.funcs),
-               tuple(id(c) for c in chosen),
-               tuple((fid, mins, tuple((tuple(a.shape), a.dtype)
-                                       for a in arrs))
-                     for fid, (mins, arrs) in presets.items()))
-        run = self._plan_cache.get(key)
-        if run is None:
-            run = self._build_fn(g, regions, input_objs, param_vals, dev)
-            self._plan_cache[key] = run
+        with spans.span(spans.PREPARE):
+            with spans.span(spans.GATHER_GRAPH):
+                g = gather_graph(self.outputs)
+            with spans.span(spans.PLAN_KEY):
+                regions = self._out_regions(sizes, dst)
+                input_objs = self._inputs(g)
+                inp_arrays = [buf.data.to(dev) for (_, buf) in input_objs]
+                param_vals = {id(p): p.get() for p in g.params.values()}
+                chosen = []
+                if any(f._specializations for f in g.funcs):
+                    chosen = select(g, {
+                        id(t): Realized((a,), buf._mins,
+                                        getattr(t, "name", "buf"))
+                        for (t, buf), a in zip(input_objs, inp_arrays)},
+                        param_vals, dev)
+                # memoized stages come from the host LRU cache before the
+                # run (reference: src/Memoization.cpp + runtime/cache.cpp)
+                presets = self._memo_precompute(
+                    g, input_objs, param_vals, regions, dev) if memo else {}
+                key = (self._signature(g), str(dev),
+                       tuple((b.mins(), b.extents())
+                             for b in regions.values()),
+                       tuple((id(t), tuple(buf.data.shape), buf.data.dtype,
+                              buf._mins) for (t, buf) in input_objs),
+                       tuple(sorted((k, repr(v))
+                                    for k, v in param_vals.items())),
+                       id(self.trace) if self.trace is not None else 0,
+                       tuple((f._fschedule.trace_stores,
+                              f._fschedule.trace_realizations)
+                             for f in g.funcs),
+                       tuple(id(c) for c in chosen),
+                       tuple((fid, mins, tuple((tuple(a.shape), a.dtype)
+                                               for a in arrs))
+                             for fid, (mins, arrs) in presets.items()))
+            run = self._plan_cache.get(key)
+            if run is None:
+                plan_cache["misses"] += 1
+                with spans.span(spans.PLAN_BUILD):
+                    run = self._build_fn(g, regions, input_objs, param_vals,
+                                         dev)
+                self._plan_cache[key] = run
+            else:
+                plan_cache["hits"] += 1
         return run, chosen, inp_arrays, presets, regions
 
     def _build_fn(self, g: _Graph, regions, input_objs, param_vals, dev):
@@ -627,8 +644,9 @@ class Pipeline:
             for fid, (mins, arrs) in presets.items():
                 realizations[fid] = Realized(arrs, mins, "memo")
             if "boxes" not in planned:
-                planned["boxes"] = self._bounds(g, regions, realizations,
-                                                param_vals)
+                with spans.span(spans.BOUNDS):
+                    planned["boxes"] = self._bounds(g, regions, realizations,
+                                                    param_vals)
                 planned["groups"] = {}
             boxes = planned["boxes"]
             trace = self.trace
@@ -647,8 +665,9 @@ class Pipeline:
                     return      # memoized: fetched from the cache
                 b = boxes.get(id(fn))
                 if b is not None and b.defined():
-                    realizations[id(fn)] = _evaluate_func(fn, b, ctx0)
-                    record(fn, b, realizations[id(fn)].arrays)
+                    with spans.span(spans.STAGE, fn.name):
+                        realizations[id(fn)] = _evaluate_func(fn, b, ctx0)
+                        record(fn, b, realizations[id(fn)].arrays)
 
             cliques = _fusion_cliques(g)
             deferred: Dict[int, List[Func]] = {}

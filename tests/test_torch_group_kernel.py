@@ -137,6 +137,26 @@ def test_plan_record_and_sub_tiles():
     assert rec["windows"] == ["srgb_to_linear"]
 
 
+def test_plan_record_is_made_once_with_the_plan(monkeypatch):
+    """A realize that hits the plan cache shows the record its first
+    realize made, and makes none: nothing the record reads changes once
+    the plan is made."""
+    app, _data = _torch_app("blur", width=96, height=64, tile=(40, 24))
+    app.realize("cpu")
+    first = gk.last_plan
+    plan = gk.group_call(app.pipeline, "cpu")[0]
+    assert first == plan.record()
+    made = []
+    record = gk.GroupPlan.record
+    monkeypatch.setattr(gk.GroupPlan, "record",
+                        lambda self: made.append(1) or record(self))
+    gk.last_plan = None
+    app.realize("cpu")
+    assert made == []
+    assert gk.last_plan == first
+    assert gk.plans_by_name[plan.f.name] == first
+
+
 @pytest.mark.parametrize("name,kw", [
     ("blur", dict(width=96, height=64, tile=(40, 24))),
     ("linear_blur", dict(width=64, height=48)),
