@@ -444,8 +444,56 @@ def predicated_scan(width, height, seed=0):
     return hl.Pipeline(g), w
 
 
+def check_replay(app, eager=None, exact=True):
+    """The app's plan replayed as one CUDA graph (plan_graph) against an
+    eager realize on the same inputs: realize until its graph is captured
+    and replayed, and hold the last output against `eager` (an eager
+    realize's outputs; by default a new Pipeline's over the same outputs,
+    a plan miss): bit for bit, shape and strides too, or, with `exact`
+    False (the float scatters, whose sums change order from run to run),
+    by `spread`'s rule. Fails where the plan did not replay."""
+    import halide_tpu_torch as hl
+    from halide_tpu_torch import plan_graph
+    r0, f0 = plan_graph.replays, plan_graph.fallbacks
+    for _ in range(plan_graph._CAPTURE_HIT + 1):
+        got = app.realize()
+    torch.cuda.synchronize()
+    n = plan_graph.replays - r0
+    if n < 1 or plan_graph.fallbacks != f0:
+        raise SystemExit(f"{app.name}: its plan did not replay ({n} "
+                         f"replays; {plan_graph.last_fallback!r})")
+    if eager is None:
+        eager = hl.Pipeline(app.pipeline.outputs).realize(app.output_sizes)
+    got, eager = (list(o) if isinstance(o, (list, tuple)) else [o]
+                  for o in (got, eager))
+    worst = 0.0
+    for g, e in zip(got, eager):
+        a, b = g.data, e.data
+        if (a.shape, a.stride(), a.dtype) != (b.shape, b.stride(), b.dtype):
+            raise SystemExit(f"{app.name}: the replay's output is "
+                             f"{(a.shape, a.stride(), a.dtype)}, the eager "
+                             f"realize's {(b.shape, b.stride(), b.dtype)}")
+        if exact:
+            if not torch.equal(a, b):
+                raise SystemExit(f"{app.name}: the replay's output differs "
+                                 "from the eager realize's")
+            continue
+        d = (a.double() - b.double()).abs()
+        worst = max(worst, d.max().item())
+        bad = (d > app.atol + app.tolerance * b.double().abs()).double() \
+            .mean().item()
+        if bad > app.mismatch_frac:
+            raise SystemExit(f"{app.name}: the replay's output differs from "
+                             f"the eager realize's beyond the app's rule on "
+                             f"{bad!r} of the points")
+    say(f"{app.name}: {n} replays of its plan's CUDA graph; the last "
+        + ("bit for bit the eager realize" if exact else
+           f"within the app's tolerance of the eager realize (max abs "
+           f"{worst!r})"))
+
+
 def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
-            walks=(False,), bands=None, golden=None):
+            walks=(False,), bands=None, golden=None, exact_replay=True):
     """One app on the main path: realize on the card with the counts at 0
     (one K1 launch per group, `len(walks)`, each a band walk where `walks`
     says so, and no rejected plan), then hold each group's kernel against
@@ -454,9 +502,10 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
     point) and the output against the golden (the app's own rule). With
     `bands`, the plain version evaluates only the sub-tiles of the first
     and the last `bands` bands, and the two are compared on the output rows
-    those cover. -> (the main path's group calls, its launches, the largest
-    max abs error against the plain version, the plain versions' ms, one
-    call each)."""
+    those cover. Last, the plan replayed as a CUDA graph against an eager
+    realize (`check_replay`, `exact_replay`). -> (the main path's group
+    calls, its launches, the largest max abs error against the plain
+    version, the plain versions' ms, one call each)."""
     from halide_tpu_torch.ops import group_kernel as gk
     gk.launches = 0
     gk.rejects.clear()
@@ -531,6 +580,7 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
     check_golden(app.name, out.to_numpy(),
                  app.reference(**data) if golden is None else golden,
                  app.tolerance, app.atol, app.mismatch_frac)
+    check_replay(app, exact=exact_replay)
     return calls, launches, err, plain_ms
 
 
@@ -834,13 +884,18 @@ def reduction_app(app, data, note, ref_ms=None):
     """An app of inline reductions or contraction updates on the main path:
     realize on the card (no group kernel: whole-array stages and updates),
     the output against its golden, the lowering its updates and inline
-    reductions took, and its realize time (CUDA events after a warm-up, L2
-    flushed) beside the reference Halide's GPU time where there is one.
+    reductions took, the plan replayed as a CUDA graph bit for bit that
+    realize (`check_replay`), and its realize time (CUDA events after a
+    warm-up, L2 flushed) beside the reference Halide's GPU time where there
+    is one.
     The convolution and einsum calls of one realize are kept and timed
     alone (device time, at full precision as the port runs them). -> the
     row of times."""
     from halide_tpu_torch import eval_torch, updates
     from halide_tpu_torch.ops import group_kernel as gk
+    # a plan miss: the realize runs eager, and makes the calls counted
+    # below (a replay of the plan's CUDA graph makes none of them)
+    app.pipeline._plan_cache.clear()
     updates._last_reduce_path.clear()
     inline0 = dict(eval_torch.reduce_paths)
     gk.launches = 0
@@ -862,6 +917,7 @@ def reduction_app(app, data, note, ref_ms=None):
     for o, r in zip(outs, refs):
         check_golden(app.name, o.to_numpy(), r, app.tolerance, app.atol,
                      app.mismatch_frac)
+    check_replay(app, outs)
     return {"app": app.name, "paths": dict(updates._last_reduce_path),
             "inline": inline, "convs": convs, "einsums": einsums,
             "reference_gpu_ms": ref_ms}
@@ -936,7 +992,8 @@ def slice2_apps(app_co, app_bg, app_bgu, data, card, k1_row, flush):
              "affine slice)", 1e-5, 0.92)):
         d = data[id(app)]
         golden = app.reference(**d)
-        res = run_app(app, d, note, 0.0, rtol=rtol, bands=1, golden=golden)
+        res = run_app(app, d, note, 0.0, rtol=rtol, bands=1, golden=golden,
+                      exact_replay=app is app_co)
         plan = res[0][0][0]
         if app is app_bg:
             z_in_window(app, plan, d)

@@ -1322,7 +1322,6 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
     CUDA tensor) or its plain version (a CPU tensor). Returns None when the
     plan cannot take the schedule; the caller then evaluates the group
     whole-array. `cache` keeps the plan of each Func across realizes."""
-    global last_plan
     with spans.span(spans.K1, f.name):
         plan = cache.get(id(f))
         if plan is None:
@@ -1340,14 +1339,22 @@ def try_group(f: Func, box: Box, ctx0: Ctx, graph,
             cache[id(f)] = plan
         elif plan is False:
             return None
-        last_plan = plans_by_name[f.name] = plan.recorded
-        rejects_by_name.pop(f.name, None)
+        note_plan(f.name, plan.recorded)
         inputs = [ctx0.realizations[id(w.target)].arrays[0]
                   for w in plan.windows]
         real_mins = [ctx0.realizations[id(w.target)].mins
                      for w in plan.windows]
         out = compute(plan, inputs, real_mins, ctx0.params, ctx0.device)
         return Realized((out,), plan.mins, f.name)
+
+
+def note_plan(name: str, recorded: dict) -> None:
+    """Record a group's plan (`recorded`, its `record()`) as the last plan
+    and as the plan of its consumer `name`, as each launch of the group,
+    or replay of one (plan_graph), leaves them."""
+    global last_plan
+    last_plan = plans_by_name[name] = recorded
+    rejects_by_name.pop(name, None)
 
 
 # where set, `compute` hands each plan to this callable and computes

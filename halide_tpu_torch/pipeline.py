@@ -12,7 +12,8 @@ src/Pipeline.cpp:512-1024, src/Lower.cpp:136-608). Lowering here is:
    `compute_at` producers goes to the stencil-group kernel
    (ops/group_kernel), one launch for the group
 5. cache the planned graph (bounds and group plans) per graph, sizes and
-   bound inputs, so a repeated realize only executes
+   bound inputs, so a repeated realize only executes; on the card, it
+   replays the plan captured as one CUDA graph (plan_graph)
 
 Around that loop: specialization ladders resolved per realize (specialize),
 memoized stages fetched from the native LRU (runtime), extern stages run on
@@ -478,9 +479,10 @@ class Pipeline:
         `device`: None means the card, and raises where there is none. The
         arguments come in the JAX package's order.
 
-        `jit` selects nothing: realize is eager either way (a planned
-        realize runs the plan cache's `run`, launch by launch). It is taken
-        so that calls written for the JAX package run unchanged.
+        `jit` selects nothing: a realize runs the same way either way (on
+        the card, a plan's later realizes replay it as one CUDA graph,
+        `plan_graph`). It is taken so that calls written for the JAX
+        package run unchanged.
 
         `mesh` (a `parallel.Mesh`) with a `distribute()` record on the first
         output shards the realize over the record's mesh axis: the spatial
@@ -556,6 +558,7 @@ class Pipeline:
     def _run(self, sizes, dst, device, groups: bool = True):
         """Plan (or fetch from the plan cache) and run the pipeline.
         -> (per output, a tuple of tensors; the requested regions)."""
+        from . import plan_graph
         from .specialize import apply_all, restore
         dev = resolve_device(device)
         run, chosen, inp_arrays, presets, regions = self._prepare(
@@ -565,7 +568,8 @@ class Pipeline:
         undo = apply_all(chosen)
         try:
             with spans.span(spans.RUN):
-                return run(inp_arrays, presets, groups), regions
+                return plan_graph.run(self, run, inp_arrays, presets, groups,
+                                      dev), regions
         finally:
             restore(undo)
 
@@ -719,6 +723,10 @@ class Pipeline:
             return tuple(outs)
 
         run.planned = planned
+        # for plan_graph: the graph gathered, and by `groups` flag the CUDA
+        # graph captured, or why the plan stays eager
+        run.func_graph = g
+        run.replays = {}
         return run
 
     def _bounds(self, g, regions, realizations, param_vals):
@@ -963,8 +971,12 @@ class Pipeline:
         return _StagesReport(total_ms=total, funcs=entries)
 
     def _profile_fused(self, g, boxes, sizes, dst, dev, reps: int = 3):
+        from . import plan_graph
+
         def steady_ms(p, p_sizes=None, p_dst=None):
-            p.realize(p_sizes, dst=p_dst, device=dev)      # plan, build
+            # plan and build, then capture the plan's graph on the card
+            for _ in range(plan_graph._CAPTURE_HIT + 1):
+                p.realize(p_sizes, dst=p_dst, device=dev)
             return _time_ms(lambda: [p.realize(p_sizes, dst=p_dst,
                                                device=dev)
                                      for _ in range(reps)], dev) / reps

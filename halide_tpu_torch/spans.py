@@ -19,6 +19,9 @@ fixed (`KINDS`), so that times add up by kind, and nest so:
         ht.k1                      group_kernel.try_group
           ht.k1.plan               plan_group, on a group's first realize
           ht.k1.launch             group_kernel.launch
+        ht.replay                  the plan's CUDA graph replayed: the
+                                   inputs copied in, the replay, the
+                                   outputs copied out (plan_graph)
 
 A kind's total counts the time of its outermost spans only, so a realize
 nested in another (a memoized stage's sub-pipeline) adds its count and its
@@ -50,13 +53,13 @@ import torch
 
 KINDS = ("ht.realize", "ht.prepare", "ht.gather_graph", "ht.plan_key",
          "ht.plan_build", "ht.run", "ht.bounds", "ht.stage", "ht.k1",
-         "ht.k1.plan", "ht.k1.launch")
+         "ht.k1.plan", "ht.k1.launch", "ht.replay")
 (REALIZE, PREPARE, GATHER_GRAPH, PLAN_KEY, PLAN_BUILD, RUN, BOUNDS, STAGE,
- K1, K1_PLAN, K1_LAUNCH) = range(len(KINDS))
-# records the ring keeps: twice the realizes of the benchmark's fastest
-# cell's window (camera_pipe at 2560x1920, some 5,100 frames in 51 s) and
-# more, in 4.7 MB
-CAPACITY = 16384
+ K1, K1_PLAN, K1_LAUNCH, REPLAY) = range(len(KINDS))
+# records the ring keeps: a 51-s window of realizes of a millisecond each
+# and more, in 20 MB (camera_pipe at 2560x1920 replays its plan in about
+# 3 ms on an H100, some 17,000 frames in 51 s)
+CAPACITY = 65536
 
 _clock = time.perf_counter_ns
 _profiling = torch._C._autograd._profiler_enabled
@@ -196,12 +199,16 @@ def totals() -> Dict[str, dict]:
 
 def counters() -> Dict[str, int]:
     """The port's counters, read where they are kept: the plan cache's
-    hits and misses (pipeline), the libraries built and loaded (ops/build)
-    and each kernel's launches."""
-    from . import pipeline
+    hits and misses (pipeline), the plans' CUDA graphs captured and
+    replayed and the hits on the card that ran eager (plan_graph), the
+    libraries built and loaded (ops/build) and each kernel's launches."""
+    from . import pipeline, plan_graph
     from .ops import build, group_kernel, rowhist_kernel, scan_kernel
     return {"plan_cache.hits": pipeline.plan_cache["hits"],
             "plan_cache.misses": pipeline.plan_cache["misses"],
+            "plan_graph.captures": plan_graph.captures,
+            "plan_graph.replays": plan_graph.replays,
+            "plan_graph.fallbacks": plan_graph.fallbacks,
             "kernels.built": len(build.builds),
             "kernels.loaded": len(build._LIBS),
             "group_kernel.launches": group_kernel.launches,

@@ -15,7 +15,8 @@ PARENT = {"ht.prepare": "ht.realize", "ht.gather_graph": "ht.prepare",
           "ht.plan_key": "ht.prepare", "ht.plan_build": "ht.prepare",
           "ht.run": "ht.realize", "ht.bounds": "ht.run",
           "ht.stage": "ht.run", "ht.k1": "ht.run",
-          "ht.k1.plan": "ht.k1", "ht.k1.launch": "ht.k1"}
+          "ht.k1.plan": "ht.k1", "ht.k1.launch": "ht.k1",
+          "ht.replay": "ht.run"}
 FIRST_ONLY = ("ht.plan_build", "ht.bounds", "ht.k1.plan")
 
 
