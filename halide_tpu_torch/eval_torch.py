@@ -47,6 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import expr as E
+from . import spans
 from .expr import CompileError, Expr
 from .htypes import Int, Type, compute_dtype, torch_dtype
 
@@ -1018,7 +1019,8 @@ def static_int(e: Expr, ctx: Ctx) -> int:
 
 # how each inline reduction was evaluated (the chip check prints it):
 # "conv", "einsum", "reduce" (torch's reductions), "fold" (K1's plain
-# version, point by point)
+# version, point by point); `spans.counters()` adds its "conv" and
+# "einsum" to the updates' (`updates.reduce_path_counts`) as contract.*
 reduce_paths: collections.Counter = collections.Counter()
 
 # the einsum path needs a grid (output and RDom) of at least this many
@@ -1412,7 +1414,7 @@ def try_conv_reduce(e: Expr, ctx: Ctx, red_axes_names):
     nsp = len(spatial)
     conv = (torch.nn.functional.conv1d, torch.nn.functional.conv2d,
             torch.nn.functional.conv3d)[nsp - 1]
-    with contract_precision():
+    with contract_precision(), spans.span(spans.CONTRACT):
         out = conv(lhs.movedim(-1, 1).float(),
                    rhs.permute([nsp + 1, nsp] + list(range(nsp))).float(),
                    stride=tuple(s[2] for s in spatial))
@@ -1462,7 +1464,7 @@ def try_einsum_reduce(e: Expr, ctx: Ctx, red_np_axes):
     spec = ",".join("".join(_LETTERS[p] for p in pos)
                     for pos in positions) \
         + "->" + "".join(_LETTERS[p] for p in outpos)
-    with contract_precision():
+    with contract_precision(), spans.span(spans.CONTRACT):
         r = torch.einsum(spec, *[a.to(acc) for a in ops])
     for p, s in zip(outpos, r.shape):
         shape[p] = s

@@ -16,12 +16,20 @@ fixed (`KINDS`), so that times add up by kind, and nest so:
       ht.run                       the plan's run
         ht.bounds                  the bounds pass, on a plan's first run
         ht.stage                   a whole-array stage (_evaluate_func)
+          ht.contract              a library contraction of the stage:
+                                   cuDNN's convolution (eval_torch.
+                                   try_conv_reduce) or torch.einsum
+                                   (try_einsum_reduce), f32 and f64
         ht.k1                      group_kernel.try_group
           ht.k1.plan               plan_group, on a group's first realize
           ht.k1.launch             group_kernel.launch
         ht.replay                  the plan's CUDA graph replayed: the
                                    inputs copied in, the replay, the
                                    outputs copied out (plan_graph)
+
+A realize that replays its plan's graph runs neither `ht.stage` nor
+`ht.contract`, nor counts a contraction's lowering (`counters()`'s
+contract.*): the kernels replay, the host code that chose them does not.
 
 A kind's total counts the time of its outermost spans only, so a realize
 nested in another (a memoized stage's sub-pipeline) adds its count and its
@@ -53,9 +61,9 @@ import torch
 
 KINDS = ("ht.realize", "ht.prepare", "ht.gather_graph", "ht.plan_key",
          "ht.plan_build", "ht.run", "ht.bounds", "ht.stage", "ht.k1",
-         "ht.k1.plan", "ht.k1.launch", "ht.replay")
+         "ht.k1.plan", "ht.k1.launch", "ht.replay", "ht.contract")
 (REALIZE, PREPARE, GATHER_GRAPH, PLAN_KEY, PLAN_BUILD, RUN, BOUNDS, STAGE,
- K1, K1_PLAN, K1_LAUNCH, REPLAY) = range(len(KINDS))
+ K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT) = range(len(KINDS))
 # records the ring keeps: a 51-s window of realizes of a millisecond each
 # and more, in 20 MB (camera_pipe at 2560x1920 replays its plan in about
 # 3 ms on an H100, some 17,000 frames in 51 s)
@@ -201,9 +209,13 @@ def counters() -> Dict[str, int]:
     """The port's counters, read where they are kept: the plan cache's
     hits and misses (pipeline), the plans' CUDA graphs captured and
     replayed and the hits on the card that ran eager (plan_graph), the
-    libraries built and loaded (ops/build) and each kernel's launches."""
-    from . import pipeline, plan_graph
+    libraries built and loaded (ops/build), each kernel's launches, and
+    the contractions lowered on eager realizes by path: update
+    definitions (updates.reduce_path_counts) and, on the two library
+    paths, inline sums (eval_torch.reduce_paths)."""
+    from . import eval_torch, pipeline, plan_graph, updates
     from .ops import build, group_kernel, rowhist_kernel, scan_kernel
+    upd, inline = updates.reduce_path_counts, eval_torch.reduce_paths
     return {"plan_cache.hits": pipeline.plan_cache["hits"],
             "plan_cache.misses": pipeline.plan_cache["misses"],
             "plan_graph.captures": plan_graph.captures,
@@ -213,4 +225,8 @@ def counters() -> Dict[str, int]:
             "kernels.loaded": len(build._LIBS),
             "group_kernel.launches": group_kernel.launches,
             "scan_kernel.launches": sum(scan_kernel.launches.values()),
-            "rowhist_kernel.launches": rowhist_kernel.launches}
+            "rowhist_kernel.launches": rowhist_kernel.launches,
+            "contract.conv": upd["conv"] + inline["conv"],
+            "contract.einsum": upd["einsum"] + inline["einsum"],
+            "contract.unrolled": upd["unrolled"],
+            "contract.dense": upd["dense"]}

@@ -33,6 +33,7 @@ write that could overwrite it.
 """
 from __future__ import annotations
 
+import collections
 import itertools
 import math
 from typing import List, Optional, Tuple
@@ -75,6 +76,15 @@ _ROWHIST_MIN_RED = 128
 # last reduction-lowering decision per func name (tests/debugging spy):
 # "conv" | "einsum" | "unrolled" | "dense"
 _last_reduce_path: dict = {}
+# every such decision since the process started, by path (eager realizes
+# only: a replayed plan runs no lowering); `spans.counters()` exports them
+# as contract.<path>
+reduce_path_counts: collections.Counter = collections.Counter()
+
+
+def _note_path(func, path: str) -> None:
+    _last_reduce_path[func.name] = path
+    reduce_path_counts[path] += 1
 
 
 def _rdom_marked_unrolled(d, rdom_axes) -> bool:
@@ -416,7 +426,7 @@ def _try_dense_combine(func, d, current, base_ctx: Ctx, rdom_axes):
             if red is None and taps > _UNROLL_TAPS:
                 red, path = try_einsum_reduce(g, inner, red_axes), "einsum"
             if red is not None:
-                _last_reduce_path[func.name] = path
+                _note_path(func, path)
                 if red.dim() > base_ctx.ndim:
                     red = red.reshape(red.shape[-base_ctx.ndim:])
                 out.append(_apply_binop(op, t, current[i], kastype(red, t))
@@ -439,7 +449,7 @@ def _try_dense_combine(func, d, current, base_ctx: Ctx, rdom_axes):
                         v = torch.where(m, v, _ident(op, d.values[i].dtype,
                                                      v))
                     acc = v if acc is None else _fold(op, acc, v)
-                _last_reduce_path[func.name] = "unrolled"
+                _note_path(func, "unrolled")
                 red = kastype(acc, t)
                 if red.dim() > base_ctx.ndim:
                     red = red.reshape(red.shape[-base_ctx.ndim:])
@@ -451,7 +461,7 @@ def _try_dense_combine(func, d, current, base_ctx: Ctx, rdom_axes):
             # the dense reduction materializes the whole product grid; step
             # the outermost rdom dim sequentially instead
             return None
-        _last_reduce_path[func.name] = "dense"
+        _note_path(func, "dense")
         garr = eval_array(g, inner)
         garr = garr.expand(torch.broadcast_shapes(
             garr.shape, full_shape(inner, rdom_axes)))

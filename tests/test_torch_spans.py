@@ -16,7 +16,7 @@ PARENT = {"ht.prepare": "ht.realize", "ht.gather_graph": "ht.prepare",
           "ht.run": "ht.realize", "ht.bounds": "ht.run",
           "ht.stage": "ht.run", "ht.k1": "ht.run",
           "ht.k1.plan": "ht.k1", "ht.k1.launch": "ht.k1",
-          "ht.replay": "ht.run"}
+          "ht.replay": "ht.run", "ht.contract": "ht.stage"}
 FIRST_ONLY = ("ht.plan_build", "ht.bounds", "ht.k1.plan")
 
 
