@@ -7,6 +7,7 @@ scheduling directives attach a Schedule that the lowering consumes.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, List, Optional, Sequence, Tuple
 
 from . import expr as E
@@ -18,6 +19,22 @@ from .schedule import (Bound, Dim, ForType, FuncSchedule, LoopLevel, Split,
 from .visitors import expr_uses_var, find_variables, walk
 
 __all__ = ["Var", "Func", "Stage", "FuncRef", "_"]
+
+# The definition epoch, one count for the process: every change to what
+# `pipeline.gather_graph` walks bumps it -- a Func's definitions, its extern
+# stage or its specializations, a held Definition's args, values, predicates
+# or RDom, an RDom's predicates (`RDom.where`) or an RVar's bounds. A
+# Pipeline reuses its last walk while the epoch stands (`Pipeline._prepare`).
+# Schedule directives leave it: the walk does not read them.
+_epoch = [0]
+
+
+def definition_epoch() -> int:
+    return _epoch[0]
+
+
+def definitions_changed() -> None:
+    _epoch[0] += 1
 
 
 class Var(E.Variable):
@@ -71,7 +88,12 @@ def _resolve_implicit(target, args: Sequence) -> Tuple:
 
 
 class Definition:
-    """One pure or update definition (reference: src/Definition.h:38)."""
+    """One pure or update definition (reference: src/Definition.h:38).
+    Setting a walked field again (`Func.in_` redirecting its consumers,
+    `rfactor`) bumps the definition epoch; setting it the first time does
+    not, since no Func holds the Definition yet."""
+
+    _WALKED = frozenset(("args", "values", "rdom", "predicates"))
 
     def __init__(self, args: Tuple[Expr, ...], values: Tuple[Expr, ...],
                  rdom: Optional[RDom], predicates: List[Expr],
@@ -83,6 +105,18 @@ class Definition:
         rvar_names = [rv.name for rv in rdom.dims] if rdom is not None else []
         # loop vars: the pure vars that actually appear, then rvars
         self.schedule = StageSchedule(list(pure_args), rvar_names)
+
+    def __setattr__(self, name, value):
+        if name in Definition._WALKED and name in self.__dict__:
+            _epoch[0] += 1
+        object.__setattr__(self, name, value)
+
+    def replaced(self, **fields) -> "Definition":
+        """A copy with `fields` replaced, which no Func holds: the epoch
+        stays."""
+        d = copy.copy(self)
+        d.__dict__.update(fields)
+        return d
 
     def is_pure(self) -> bool:
         return self.rdom is None and all(
@@ -496,6 +530,7 @@ class Func:
         self._args = tuple(keys)
         d = Definition(tuple(keys), vals, None, [], tuple(names))
         self._defs.append(d)
+        definitions_changed()
 
     def _define_update(self, keys, vals) -> None:
         if len(keys) != len(self._args):
@@ -532,6 +567,7 @@ class Func:
             for v, t in zip(vals, ptypes))
         d = Definition(keys, vals, rd, preds, tuple(pure_in_update))
         self._defs.append(d)
+        definitions_changed()
 
     def __getitem__(self, keys) -> FuncRef:
         if not isinstance(keys, tuple):
@@ -799,6 +835,7 @@ class Func:
             "bounds_query": bounds_query,
         }
         self._args = tuple(Var(f"_e{i}") for i in range(self._extern["dims"]))
+        definitions_changed()
         return self
 
     def is_extern(self) -> bool:

@@ -162,7 +162,6 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import copy
 import ctypes
 import hashlib
 import itertools
@@ -1624,8 +1623,8 @@ def run_plain(plan: GroupPlan, inputs, real_mins, params: dict,
             for d, vals, preds in m.updates:
                 ctx = context(m.target, lohi, dict(realz))
                 ctx.realizations[id(m.target)] = Realized(cur, mins, m.name)
-                d2 = copy.copy(d)
-                d2.values, d2.predicates = tuple(vals), list(preds)
+                d2 = d.replaced(values=tuple(vals),
+                                predicates=list(preds))
                 cur = apply_update(m.target, d2, cur, ctx)
             realz[id(m.target)] = Realized(
                 tuple(a.to(torch_dtype(t)) for a, t in zip(cur, m.types)),

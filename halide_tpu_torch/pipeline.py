@@ -42,7 +42,7 @@ from .bounds import BoundsEngine, Box, Interval
 from .buffer import Buffer, ImageParam, Param, Realization
 from .eval_torch import Axis, Ctx, Realized, eval_array, full_shape, static_int
 from .expr import CompileError, Expr
-from .func import Func
+from .func import Func, definition_epoch
 from .hooks import to_numpy
 from .htypes import compute_dtype, torch_dtype
 from .visitors import walk
@@ -59,6 +59,8 @@ last_memo: dict = {}
 last_extern: dict = {}
 # plan-cache lookups of every Pipeline's `_prepare` in this process
 plan_cache = {"hits": 0, "misses": 0}
+# graph walks `_prepare` reused (hits) and made (misses) in this process
+graph_cache = {"hits": 0, "misses": 0}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -122,27 +124,34 @@ def _scan_expr_targets(e: Expr, on_func, on_input, on_param):
     walk(e, fn)
 
 
+def _want_materialize(f: Func) -> bool:
+    if f.is_extern():
+        return True
+    lvl = f._fschedule.compute_level
+    if lvl.is_inlined():
+        if len(f._defs) > 1:
+            raise CompileError(
+                f"Func {f.name} with update definitions cannot be inlined")
+        return False
+    if lvl.is_root() or lvl.kind == "at":
+        return True
+    # defaults: inline pure single-value defs; materialize the rest
+    return (len(f._defs) > 1 or len(f._defs[0].values) > 1
+            or f._fschedule.memoized or bool(f._specializations)
+            or any(d.schedule.fused_with for d in f._defs))
+
+
+def _materialized(funcs: List[Func], outputs: List[Func]) -> Dict[int, Func]:
+    """The stages that get a buffer, by the schedules as they are now."""
+    return {id(f): f for f in funcs
+            if f in outputs or _want_materialize(f)}
+
+
 def gather_graph(outputs: List[Func]) -> _Graph:
     g = _Graph()
     seen: Dict[int, Func] = {}
     order: List[Func] = []
     visiting: set = set()
-
-    def want_materialize(f: Func) -> bool:
-        if f.is_extern():
-            return True
-        lvl = f._fschedule.compute_level
-        if lvl.is_inlined():
-            if len(f._defs) > 1:
-                raise CompileError(
-                    f"Func {f.name} with update definitions cannot be inlined")
-            return False
-        if lvl.is_root() or lvl.kind == "at":
-            return True
-        # defaults: inline pure single-value defs; materialize the rest
-        return (len(f._defs) > 1 or len(f._defs[0].values) > 1
-                or f._fschedule.memoized or bool(f._specializations)
-                or any(d.schedule.fused_with for d in f._defs))
 
     def visit(f: Func):
         if id(f) in seen:
@@ -172,9 +181,7 @@ def gather_graph(outputs: List[Func]) -> _Graph:
     for f in outputs:
         visit(f)
     g.funcs = order
-    for f in order:
-        if f in outputs or want_materialize(f):
-            g.materialized[id(f)] = f
+    g.materialized = _materialized(order, outputs)
     return g
 
 
@@ -403,7 +410,30 @@ class Pipeline:
             outputs = [outputs]
         self.outputs: List[Func] = list(outputs)
         self._plan_cache: Dict = {}
+        # the last graph walk: (definition epoch, funcs, inputs, params)
+        self._walk = None
         self.trace = None
+
+    def _graph(self) -> _Graph:
+        """gather_graph(self.outputs), its walk reused while no definition
+        has changed since (`func.definition_epoch`). A reuse decides anew
+        which stages are materialized: that reads the schedules."""
+        epoch = definition_epoch()
+        walk = self._walk
+        if walk is None or walk[0] != epoch:
+            graph_cache["misses"] += 1
+            g = gather_graph(self.outputs)
+            self._walk = (epoch, list(g.funcs), dict(g.inputs),
+                          dict(g.params))
+            return g
+        graph_cache["hits"] += 1
+        with spans.span(spans.GRAPH_REUSE):     # a mark: no work inside
+            pass
+        g = _Graph()
+        g.funcs, g.inputs, g.params = list(walk[1]), dict(walk[2]), \
+            dict(walk[3])
+        g.materialized = _materialized(g.funcs, self.outputs)
+        return g
 
     def _signature(self, g: _Graph) -> Tuple:
         sig = []
@@ -583,7 +613,7 @@ class Pipeline:
         from .specialize import select
         with spans.span(spans.PREPARE):
             with spans.span(spans.GATHER_GRAPH):
-                g = gather_graph(self.outputs)
+                g = self._graph()
             with spans.span(spans.PLAN_KEY):
                 regions = self._out_regions(sizes, dst)
                 input_objs = self._inputs(g)

@@ -25,6 +25,14 @@ class RVar(E.Variable):
         self.rextent = to_expr(extent, hint=Int(32)) if extent is not None else None
         self.rdom: Optional["RDom"] = None
 
+    def __setattr__(self, name, value):
+        # a bound set again (`rdom` is set last in __init__) changes what
+        # the graph walk reads: bump the definition epoch
+        if name in ("rmin", "rextent") and hasattr(self, "rdom"):
+            from .func import definitions_changed
+            definitions_changed()
+        super().__setattr__(name, value)
+
     def min(self) -> Expr:
         return self.rmin
 
@@ -100,7 +108,9 @@ class RDom:
         return len(self.dims)
 
     def where(self, pred) -> "RDom":
+        from .func import definitions_changed
         self.predicates.append(to_expr(pred))
+        definitions_changed()       # the graph walk reads the predicates
         return self
 
     def min(self) -> Expr:

@@ -150,12 +150,13 @@ def rfactor_impl(f: Func, def_index: int, pairs: List[Tuple]):
         partial = E.Call(inter, tuple(lhs_args) + tuple(outer_rdom.dims), i)
         self_call = E.Call(f, tuple(lhs_args), i)
         new_vals2.append(E.make_binary(op, self_call, partial))
-    from .func import Definition
+    from .func import Definition, definitions_changed
     pure_names = tuple(
         v.name for v in f._defs[0].args
         if any(isinstance(a, E.Variable) and a.name == v.name
                for a in lhs_args))
     f._defs[def_index] = Definition(
         tuple(lhs_args), tuple(new_vals2), outer_rdom, [], pure_names)
+    definitions_changed()
     inter.compute_root()
     return inter

@@ -17,7 +17,7 @@ from typing import Dict, List
 from . import expr as E
 from .buffer import ImageParam, Param
 from .expr import CompileError, Expr
-from .func import Definition, Func, Var
+from .func import Definition, Func, Var, definitions_changed
 from .htypes import Type
 from .rdom import RDom, RVar
 from .schedule import (Bound, Dim, ForType, LoopLevel, Split, StageSchedule,
@@ -356,6 +356,7 @@ class _Des:
                 fn._args = args
             self._apply_stage_schedule(d.schedule, dmeta["schedule"])
             fn._defs.append(d)
+            definitions_changed()
         self._apply_func_schedule(fn, meta["schedule"])
         return fn
 

@@ -9,7 +9,8 @@ fixed (`KINDS`), so that times add up by kind, and nest so:
 
     ht.realize                     Pipeline.realize, the whole call
       ht.prepare                   Pipeline._prepare
-        ht.gather_graph            gather_graph
+        ht.gather_graph            gather_graph, or its last walk reused
+          ht.graph_reuse           a mark, of no work, where it was reused
         ht.plan_key                regions, inputs, params, the chosen
                                    specializations, memo presets, the key
         ht.plan_build              _build_fn, on a plan-cache miss
@@ -61,11 +62,12 @@ import torch
 
 KINDS = ("ht.realize", "ht.prepare", "ht.gather_graph", "ht.plan_key",
          "ht.plan_build", "ht.run", "ht.bounds", "ht.stage", "ht.k1",
-         "ht.k1.plan", "ht.k1.launch", "ht.replay", "ht.contract")
+         "ht.k1.plan", "ht.k1.launch", "ht.replay", "ht.contract",
+         "ht.graph_reuse")
 (REALIZE, PREPARE, GATHER_GRAPH, PLAN_KEY, PLAN_BUILD, RUN, BOUNDS, STAGE,
- K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT) = range(len(KINDS))
+ K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT, GRAPH_REUSE) = range(len(KINDS))
 # records the ring keeps: a 51-s window of realizes of a millisecond each
-# and more, in 20 MB (camera_pipe at 2560x1920 replays its plan in about
+# and more, in 22 MB (camera_pipe at 2560x1920 replays its plan in about
 # 3 ms on an H100, some 17,000 frames in 51 s)
 CAPACITY = 65536
 
@@ -207,17 +209,19 @@ def totals() -> Dict[str, dict]:
 
 def counters() -> Dict[str, int]:
     """The port's counters, read where they are kept: the plan cache's
-    hits and misses (pipeline), the plans' CUDA graphs captured and
-    replayed and the hits on the card that ran eager (plan_graph), the
-    libraries built and loaded (ops/build), each kernel's launches, and
-    the contractions lowered on eager realizes by path: update
-    definitions (updates.reduce_path_counts) and, on the two library
-    paths, inline sums (eval_torch.reduce_paths)."""
+    hits and misses and the graph walks reused and made (pipeline), the
+    plans' CUDA graphs captured and replayed and the hits on the card that
+    ran eager (plan_graph), the libraries built and loaded (ops/build),
+    each kernel's launches, and the contractions lowered on eager realizes
+    by path: update definitions (updates.reduce_path_counts) and, on the
+    two library paths, inline sums (eval_torch.reduce_paths)."""
     from . import eval_torch, pipeline, plan_graph, updates
     from .ops import build, group_kernel, rowhist_kernel, scan_kernel
     upd, inline = updates.reduce_path_counts, eval_torch.reduce_paths
     return {"plan_cache.hits": pipeline.plan_cache["hits"],
             "plan_cache.misses": pipeline.plan_cache["misses"],
+            "graph_cache.hits": pipeline.graph_cache["hits"],
+            "graph_cache.misses": pipeline.graph_cache["misses"],
             "plan_graph.captures": plan_graph.captures,
             "plan_graph.replays": plan_graph.replays,
             "plan_graph.fallbacks": plan_graph.fallbacks,

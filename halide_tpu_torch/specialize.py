@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import List
 
 from .expr import CompileError, Expr, to_expr
+from .func import definitions_changed
 
 
 class Specialization:
@@ -62,6 +63,7 @@ def add_specialization(func, stage_index: int, cond) -> Specialization:
         raise CompileError("specialize() condition must be boolean")
     s = Specialization(func, stage_index, cond)
     func._specializations.append(s)
+    definitions_changed()       # the walk reads the condition
     return s
 
 
@@ -69,6 +71,7 @@ def add_specialize_fail(func, stage_index: int, msg: str) -> None:
     s = Specialization(func, stage_index, to_expr(True))
     s.failure_message = msg
     func._specializations.append(s)
+    definitions_changed()
 
 
 def _reads_data(e: Expr) -> bool:

@@ -16,7 +16,8 @@ PARENT = {"ht.prepare": "ht.realize", "ht.gather_graph": "ht.prepare",
           "ht.run": "ht.realize", "ht.bounds": "ht.run",
           "ht.stage": "ht.run", "ht.k1": "ht.run",
           "ht.k1.plan": "ht.k1", "ht.k1.launch": "ht.k1",
-          "ht.replay": "ht.run", "ht.contract": "ht.stage"}
+          "ht.replay": "ht.run", "ht.contract": "ht.stage",
+          "ht.graph_reuse": "ht.gather_graph"}
 FIRST_ONLY = ("ht.plan_build", "ht.bounds", "ht.k1.plan")
 
 
@@ -105,6 +106,23 @@ def test_first_realize_misses_the_plan_cache_and_the_rest_hit():
     for kind in FIRST_ONLY:
         assert first["spans"][kind]["count"] == 1, kind
         assert all(r["spans"][kind]["count"] == 0 for r in rest), kind
+
+
+def test_the_graph_walk_is_reused_after_the_first_realize():
+    """The first realize walks the graph; the rest reuse the walk, each
+    marking an `ht.graph_reuse` span inside its `ht.gather_graph`."""
+    p, sizes = _stage_and_group()
+    c0 = spans.counters()
+    first, *rest = _realizes(p, sizes, 3)
+    c1 = spans.counters()
+    assert c1["graph_cache.misses"] - c0["graph_cache.misses"] == 1
+    assert c1["graph_cache.hits"] - c0["graph_cache.hits"] == 2
+    assert pl.graph_cache == {"hits": c1["graph_cache.hits"],
+                              "misses": c1["graph_cache.misses"]}
+    assert first["spans"]["ht.graph_reuse"]["count"] == 0
+    for r in rest:
+        assert r["spans"]["ht.graph_reuse"]["count"] == 1
+        assert r["spans"]["ht.gather_graph"]["count"] == 1
 
 
 def test_counters_read_the_port_where_it_counts():
