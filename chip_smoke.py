@@ -11,10 +11,8 @@ Then it drives the port's main paths through `App.bind` /
 
 - blur (the README quick-start schedule, 2560x1536 u16) and linear_blur
   (1536x2560x3 f32) through the stencil-group kernel K1; linear_blur's
-  full-width row bands make its launch a band walk, which carries its
-  store_root blur_x (the same build is also timed walking two sub-tiles a
-  block with two window buffers, and with the walk off; and beside the
-  same sub-tiles planned with no carry);
+  full-width row bands make its launch a band walk, its store_root
+  members computed whole in every sub-tile as any member;
 - interpolate (1536x2560x4 f32, 10 levels) and local_laplacian
   (1536x2560x3 u16, 8 pyramid levels, 8 intensity levels) through K1 with
   div-indexed windows (the half-resolution level read at x / 2), tile
@@ -22,11 +20,8 @@ Then it drives the port's main paths through `App.bind` /
 - stencil_chain (1536x2560 u16, 32 stencils, the kernel branch): four K1
   launches, one per group of 8 stencils; the last is a band walk, the
   others are wider than their tile (1632, 1600, 1568 at the tile 1536);
-  and its slide=512 branch on the same input: four K1 launches whose 15
-  members each are carried along x (a block walking the sub-tiles of a
-  row), each also against its walk off and the same sub-tiles planned with
-  no carry, exactly; linear_blur's blur_x is carried down its band walk,
-  checked the same way;
+  and its slide=512 branch on the same input: four K1 launches of 15
+  members each, stored at the tiles' row loop;
 - a group whose member is a hand-built Let (`let_group`), in float16 and
   bfloat16 at 1536x2560, tile 256x128: K1's 16-bit floats, exact against
   its plain version and the untiled pipeline;
@@ -160,7 +155,6 @@ where the package is not beside it. The last line of its output is
 {"ok": true, "device": {...}}; the line before it is the kernel table, and
 the line before that the card's name and power limit.
 """
-import copy
 import json
 import math
 import os
@@ -527,18 +521,15 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
         want = (gk._cdiv(plan.extents[plan.xi], plan.sx),
                 gk._cdiv(plan.extents[plan.yi], plan.sy)
                 if plan.yi is not None else 1)
-        w = rec["walk"]
-        grid = ((gk._cdiv(want[0], w), want[1]) if rec["axis"] == "x"
-                else (want[0], gk._cdiv(want[1], w)))
-        if rec["sub_tiles"] != want or rec["grid"] != grid:
+        if rec["sub_tiles"] != want or rec["grid"] != want:
             raise SystemExit(f"{app.name}: {plan.f.name}'s sub-tiles "
                              f"{rec['sub_tiles']} and grid {rec['grid']} are "
-                             f"not the {want} sub-tiles of its extent, "
-                             f"{w} a block along {rec['axis']}")
-    grids = [(c[0].f.name, list(c[0].extents), c[0].record()["sub_tiles"],
-              c[0].record()["grid"]) for c in calls]
-    say("every group's sub-tiles are cdiv(extent, sub-tile), its grid "
-        f"those over its walk: {grids}")
+                             f"not the {want} sub-tiles of its extent, one "
+                             "a block")
+    grids = [(c[0].f.name, list(c[0].extents), c[0].record()["grid"])
+             for c in calls]
+    say("every group's grid is its cdiv(extent, sub-tile) sub-tiles, one "
+        f"a block: {grids}")
     err = plain_ms = 0.0
     for plan, inputs, rmins, params, _realz in calls:
         kern = gk.launch(plan, inputs, rmins)
@@ -746,19 +737,6 @@ def u64_pipeline(m, a, b, f):
                 a.astype(np.float32).view(np.uint32).astype(u), fu]
         return np.stack([np.asarray(o, u) for o in out])
     return m.Pipeline(out), golden
-
-
-def no_carry(app, calls=False, same=True):
-    """Every group of `app`'s last realize planned again with no carried
-    member (`group_kernel.group_calls`), at its sub-tile and threads, or
-    with `same` False at the rule's own choice: the plan the schedule
-    would get without its store levels. -> the plans, or with `calls` the
-    group calls."""
-    from halide_tpu_torch.ops import group_kernel as gk
-    out = gk.group_calls(app.pipeline, replan=lambda p: [dict(
-        sub_tile=(p.sx, p.sy), threads=p.threads, carry=False) if same
-        else dict(carry=False)])
-    return out if calls else [c[0] for c in out]
 
 
 def run_whole(app, data, note):
@@ -2139,11 +2117,6 @@ def main():
                         + [a for _m, _d, au in auto.values()
                            for a, _r in au.values()]
                         + app_ts + app_ch + [app_gr, app_ds])
-    # the carried groups planned again with no carry, at the same sub-tile
-    # and threads and at the rule's own: built with the rest, timed beside
-    # the carried ones
-    plans += [q for app in (app_l, app_sl) for same in (True, False)
-              for q in no_carry(app, same=same)]
     sources = {p.symbol: p for p in plans}
     say(f"{len(plans)} group plans, {len(sources)} kernel sources")
 
@@ -2169,37 +2142,6 @@ def main():
     phase("linear_blur")
     res_l = run_app(app_l, data[id(app_l)], "linear_blur 1536x2560x3 f32, "
                     "tile 1536x256", 1e-4, walks=(True,))
-    # the same build walking two sub-tiles a block (the walk length the
-    # card took best, tools/k1_walk_sweep.py; two window buffers, the next
-    # sub-tile's staged by cp.async) and with its band walk off (one
-    # sub-tile a block): the values must not change
-    # the plan carries blur_x (store_root) down the band walk; the same
-    # build walking two sub-tiles a block with two window buffers (the next
-    # sub-tile's staged by cp.async), and with its walk off (one sub-tile
-    # a block: every step a first step, no carry), and the same sub-tile
-    # planned with no carry: the values must not change
-    plan_l, in_l, rm_l, _pa, _r = res_l[0][0]
-    rec_l = plan_l.record()
-    say(f"linear_blur: carried {rec_l['sliding']} along {rec_l['axis']}, "
-        f"walk {rec_l['walk']}, {rec_l['n_buf']} window buffers")
-    if rec_l["sliding"] != ["blur_x"] or rec_l["walk"] < 2:
-        raise SystemExit(f"linear_blur: planned no carry ({rec_l})")
-    walk_on, walk_off = copy.copy(plan_l), copy.copy(plan_l)
-    walk_on.walk, walk_on.n_buf = 2, 2         # f32 windows: cp.async
-    walk_off.walk, walk_off.n_buf = 1, 1
-    nc_calls_l = no_carry(app_l, calls=True)
-    nc_l, nc_in, nc_rm = nc_calls_l[0][:3]
-    k_pl = gk.launch(plan_l, in_l, rm_l)
-    ks = [gk.launch(q, in_l, rm_l) for q in (walk_on, walk_off)]
-    ks.append(gk.launch(nc_l, nc_in, nc_rm))
-    torch.cuda.synchronize()
-    err_on = max((k - k_pl).abs().max().item() for k in ks)
-    say(f"planned {rec_l} vs walking {walk_on.record()}, walk off "
-        f"{walk_off.record()} and no carry {nc_l.record()}: max abs err "
-        f"{err_on!r} (exact)")
-    if err_on != 0.0:
-        raise SystemExit("linear_blur: the walk or the carry changes the "
-                         "values")
 
     phase("interpolate")
     res_p = run_app(app_p, data[id(app_p)], "interpolate 1536x2560x4 f32, "
@@ -2218,35 +2160,12 @@ def main():
                     golden=golden_s)
 
     # the slide branch (the same input): tiles 512x128, each group's
-    # stages stored at the row loop and carried along x, a block walking
-    # the sub-tiles of a row; each launch also against its walk off (no
-    # carry) and the same sub-tile planned with no carry, exactly
+    # stages stored at the row loop
     phase("stencil_chain_slide")
     res_sl = run_app(app_sl, data[id(app_sl)], "stencil_chain 1536x2560 "
                      "u16, 32 stencils, slide=512 (tiles 512x128, stages "
                      "store_at the row loop)", 0, walks=(False,) * 4,
                      bands=1, golden=golden_s)
-    nc_sl = no_carry(app_sl, calls=True)
-    off_sl = []
-    for (plan, inputs, rmins, _pa, _r), (q, q_in, q_rm, *_x) in zip(
-            res_sl[0], nc_sl):
-        rec = plan.record()
-        if rec["axis"] != "x" or rec["walk"] < 2 or \
-                rec["sliding"] != sorted(rec["members"]):
-            raise SystemExit(f"stencil_chain slide: {plan.f.name} not "
-                             f"carried along x: {rec}")
-        off = copy.copy(plan)
-        off.walk, off.n_buf = 1, 1
-        off_sl.append(off)
-        k = gk.launch(plan, inputs, rmins)
-        same = [torch.equal(k, gk.launch(off, inputs, rmins)),
-                torch.equal(k, gk.launch(q, q_in, q_rm))]
-        say(f"{plan.f.name}: carried {len(rec['sliding'])} members along x, "
-            f"walk {rec['walk']}, sub-tile {rec['sub_tile']}, grid "
-            f"{rec['grid']}; equal to its walk off and to no carry: {same}")
-        if not all(same):
-            raise SystemExit(f"stencil_chain slide: {plan.f.name}'s carry "
-                             "changes the values")
 
     phase("let_half")
     res_h = {dt: run_app(app, {}, f"Let group, {dt}, 1536x2560, tile 256x128 "
@@ -2422,10 +2341,8 @@ def main():
             rec = plan.record()
             per.append({k: rec[k] for k in ("func", "tile", "sub_tile",
                                             "grid", "smem_bytes", "threads",
-                                            "min_blocks", "band_walk",
-                                            "axis", "walk", "n_buf",
-                                            "prefetch")}
-                       | {"carried": len(rec["sliding"]), "ms": t})
+                                            "min_blocks", "band_walk")}
+                       | {"ms": t})
         r_ms = event_ms(app.realize, 20, flush)
         row = kernel_row(
             name, "halide_tpu_torch/ops/group_kernel.py", replaces,
@@ -2443,80 +2360,17 @@ def main():
             f"{per}")
         return row
 
-    def turns(fa, fb):
-        """fa and fb timed in turns (a, b, b, a): -> ([a, a], [b, b])."""
-        ta = [event_ms(fa, 30, flush, hold=True)]
-        tb = [event_ms(fb, 30, flush, hold=True) for _ in range(2)]
-        ta.append(event_ms(fa, 30, flush, hold=True))
-        return ta, tb
-
-    def carry_times(row, app, calls, nc_calls, walk_off):
-        """The carried launches against the same sub-tiles planned with no
-        carry (`nc_calls`), in turns, the carried build with its walk off,
-        and the rule's own plan with no carry; into the row and one
-        line."""
-        def run(plans, calls):
-            return lambda: [gk.launch(q, inputs, rmins) for q, (
-                _p, inputs, rmins, _a, _b) in zip(plans, calls)]
-        carried = [c[0] for c in calls]
-        uncarried = [c[0] for c in nc_calls]
-        t_c, t_nc = turns(run(carried, calls), run(uncarried, nc_calls))
-        t_off = event_ms(run(walk_off, calls), 30, flush, hold=True)
-        rule_calls = no_carry(app, calls=True, same=False)
-        t_rule = event_ms(run([c[0] for c in rule_calls], rule_calls), 30,
-                          flush, hold=True)
-        row.update(ms_carried=t_c, ms_no_carry=t_nc, ms_walk_off=t_off,
-                   ms_rule_no_carry=t_rule,
-                   carry=[{k: c.record()[k] for k in (
-                       "func", "axis", "walk", "n_buf", "sub_tile", "grid",
-                       "smem_bytes", "sliding")} for c in carried],
-                   no_carry=[{k: q.record()[k] for k in (
-                       "func", "sub_tile", "grid", "smem_bytes")}
-                       for q in uncarried],
-                   rule_no_carry=[{k: c[0].record()[k] for k in (
-                       "func", "sub_tile", "threads", "grid", "smem_bytes")}
-                       for c in rule_calls])
-        say(f"{row['name']}: carried {t_c} ms, same sub-tiles with no carry "
-            f"{t_nc} ms (device; carried, none, none, carried), the carried "
-            f"build with its walk off {t_off} ms, the rule's own plan with "
-            f"no carry {t_rule} ms; bound "
-            f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
-
     k1 = "halide_tpu/ops/pallas_group.py:696"
     k1_row(f"K1 stencil group ({app_b.name})", k1, app_b, res_b)
-    row_l = k1_row(f"K1 stencil group ({app_l.name}, blur_x carried along "
-                   "y)", k1, app_l, res_l)
-    carry_times(row_l, app_l, res_l[0], nc_calls_l, [walk_off])
-    # the band walk's own answer: the same build walking two sub-tiles a
-    # block and with the walk off, in turns (on, off, off, on)
-    t_on = [event_ms(lambda: gk.launch(walk_on, in_l, rm_l), 30, flush,
-                     hold=True)]
-    t_off = [event_ms(lambda: gk.launch(walk_off, in_l, rm_l), 30, flush,
-                      hold=True) for _ in range(2)]
-    t_on.append(event_ms(lambda: gk.launch(walk_on, in_l, rm_l), 30, flush,
-                         hold=True))
-    rec_on, rec_off = walk_on.record(), walk_off.record()
-    say(f"linear_blur K1 walking {rec_on['walk']} sub-tiles a block with "
-        f"{rec_on['n_buf']} window buffers {t_on} ms, walk off {t_off} ms "
-        "(device; on, off, off, on)")
-    kernels.append(dict(
-        row_l, name="P2 band walk in K1 (linear_blur)",
-        replaces="halide_tpu/ops/pallas_group.py:415",
-        max_abs_err=max(row_l["max_abs_err"], err_on),
-        ms=statistics.median(t_on), ms_walk_on=t_on, ms_walk_off=t_off,
-        walk_on={k: rec_on[k] for k in ("grid", "walk", "n_buf", "prefetch",
-                                        "smem_bytes")},
-        walk_off={k: rec_off[k] for k in ("grid", "smem_bytes")}))
+    k1_row(f"K1 stencil group ({app_l.name})", k1, app_l, res_l)
     k1_row(f"K1 stencil group ({app_p.name})", k1, app_p, res_p)
     k1_row(f"K1 stencil group ({app_ll.name})", k1, app_ll, res_ll)
     some = "the output rows of the first and last 2 bands of each launch"
     k1_row(f"K1 stencil group ({app_s.name}, 4 groups)", k1, app_s, res_s,
            plain_on=some)
-    row_sl = k1_row(f"K1 stencil group ({app_sl.name} slide=512, 4 groups "
-                    "carried along x)", k1, app_sl, res_sl,
-                    plain_on="the output rows of the first and last band "
-                             "of each launch")
-    carry_times(row_sl, app_sl, res_sl[0], nc_sl, off_sl)
+    k1_row(f"K1 stencil group ({app_sl.name} slide=512, 4 groups)", k1,
+           app_sl, res_sl, plain_on="the output rows of the first and last "
+                                    "band of each launch")
     k1_row(f"K1 stencil group ({app_c.name}, tile 2560x128)", k1, app_c,
            res_c, plain_on=some)
     k1_row(f"K1 stencil group ({app_c64.name}, tile 256x64)", k1, app_c64,

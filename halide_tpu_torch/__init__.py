@@ -19,7 +19,7 @@ autoschedulers (autoschedule: Mullapudi2016, Adams2019, Anderson2021 and
 Li2018, over a cost table fitted on the card, target.FITTED_COST), the
 generator (generator: its artifacts, an exported program among them, whose
 kernels are torch.library custom ops, ops/export_ops), the tools (tools:
-gen, rungen, traceviz, tilesearch, fitcost, abtest) and
+gen, rungen, traceviz, tilesearch, fitcost) and
 propagate_adjoints (derivative, through torch.autograd).
 Realize, the tools and propagate_adjoints run on the card unless the
 caller asks for the CPU.

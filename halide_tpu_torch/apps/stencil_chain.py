@@ -16,10 +16,10 @@ pass in f32 (every intermediate is an integer below 2^24) with one wrap mod
   the same strip), and is no band walk; the last anchor is one where it
   has at least 4 bands;
 - `slide=<tx>`: the kernel branch with tiles `min(tx, width)` wide and the
-  group's stages also `store_at` the anchor's row loop. Both packages carry
-  them along the tile row (sliding window): the port's stencil-group
-  kernel walks a row's sub-tiles in order, each computing only the new
-  columns of the carried stages.
+  group's stages also `store_at` the anchor's row loop. The JAX package
+  carries them along the tile row (sliding window); the port computes a
+  store_at stage whole in every sub-tile, as the carry measured slower on
+  the H100 (PERF.md).
 
 Both tiled branches need a height that is a multiple of 128 and a width of
 at least 128; elsewhere the default is taken, as in the JAX app.

@@ -423,9 +423,9 @@ def _pick_tile(W, H):
       spread of one schedule (PERF.md section 6), so no term is modelled until
       a measurement shows one;
     * a band walk, which a tile spanning the width makes, earns nothing:
-      without a carried member K1 plans it one sub-tile a block, as any
-      other launch (`_apply` asks for no carry: PERF.md section 6, the carry
-      measured slower on this card)."""
+      K1 plans it one sub-tile a block, as any other launch (it computes a
+      store_at member whole in every sub-tile, as the carry measured slower
+      on the H100: PERF.md section 6)."""
     return min(_K1_SUB[0], W), min(_K1_SUB[1], H)
 
 
@@ -505,8 +505,9 @@ def _apply(pipeline, an: _Analysis, mat: Set[int], params) -> dict:
                    f"{tx}, {ty}).vectorize(xi).parallel(yo)")
         for p in cand:
             # compute_at alone (the JAX package also writes store_root,
-            # asking its planner to carry the member along the grid; K1's
-            # carry measured slower on this card, PERF.md section 6)
+            # asking its planner to carry the member along the grid; K1
+            # computes a store_at member whole in every sub-tile, as the
+            # carry measured slower on the H100: PERF.md section 6)
             p.compute_at(out, xo)
             staged.add(id(p))
             src.append(f"{p.name}.compute_at({out.name}, xo)")

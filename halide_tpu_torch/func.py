@@ -388,8 +388,8 @@ class Stage:
     def prefetch(self, *a, **kw) -> "Stage":
         """(reference: src/PrefetchDirective.h) Recorded like
         async()/ring_buffer(): the group kernel's plan reports the request
-        (`async_requested`) beside its own prefetch, the next sub-tile's
-        windows staged by cp.async in a two-buffer walk."""
+        (`async_requested`); K1 has one window buffer, staged by cp.async
+        before its sub-tile computes, and prefetches nothing."""
         self.func._fschedule.is_async = True
         return self
 

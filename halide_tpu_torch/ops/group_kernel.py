@@ -15,12 +15,12 @@ Pallas kernel of the JAX package) for Hopper (sm_90a).
   the sub-tiles of the whole output extent, `cdiv(extent, sx)` columns by
   `cdiv(extent_y, sy)` rows, and only the last column and the last row are
   shifted inwards (min(o, extent - sub-tile)): no output is computed by two
-  blocks. The schedule's tile decides that the group exists, bounds the
-  sub-tile (sx <= tx, sy <= ty) and decides the band walk; it no longer
-  cuts the grid. A block stages the halo'd window of each input into
-  shared memory, evaluates each producer over the sub-tile's footprint
-  into shared memory (recomputing the halo that neighbouring sub-tiles
-  also compute), and writes the sub-tile. The members' buffers share
+  blocks. The schedule's tile decides that the group exists and bounds
+  the sub-tile (sx <= tx, sy <= ty); it no longer cuts the grid. A block
+  stages the halo'd window of each input into shared memory, evaluates
+  each producer over the sub-tile's footprint into shared memory
+  (recomputing the halo that neighbouring sub-tiles also compute), and
+  writes the sub-tile. The members' buffers share
   shared memory by liveness, each free after the phase of its last reader.
 - Planning for Hopper: the sub-tile (up to 256x128) and the threads of a
   block (128, 256, 512 or 1024) are plan fields, chosen within the 227 KB a
@@ -41,36 +41,15 @@ Pallas kernel of the JAX package) for Hopper (sm_90a).
   region gathers it element by element, replicating the edge. The choice is
   made per block, from its origin, in the kernel.
 - Band walk (the counterpart of the JAX planner's band split, gated there
-  by the probe `_bandsplit_ok`, with its double-buffered window DMA): where
-  one tile spans the whole x extent, there are at least 4 row bands and the
-  row loop is parallel(), a plan is a band walk, and a block can walk
-  `walk` consecutive sub-tile rows along y. With two window buffers it
-  stages the next sub-tile's walking windows by the same copies while it
-  computes the current one. No TMA.
-- Sliding-window carry (the JAX planner's, `pallas_group.py:1229-1307` and
-  `:1476-1521`; the reference's SlidingWindow.cpp): a member stored at
-  root, or at a loop of the consumer that encloses the outer loop of the
-  walk's dim, is carried along the axis the JAX grid runs in order: y
-  under the band walk, else x where the x tiles' loop is not parallel()
-  and two whole tiles lie across (the plan's `axis`; a block then walks
-  consecutive sub-tiles along x). The member's footprint must move by
-  exactly the sub-tile's step along the axis, with the same extent, an
-  overlap, and its other dims still. Its buffer is live over the whole
-  walk; at a walk's first step the block computes the whole footprint, at
-  each later one it moves the overlap with the new footprint S elements
-  to the front of the buffer (S the sub-tile's step along the axis) and
-  computes only the last S. The move goes in passes of at most S elements
-  along the axis, a barrier after each, so that an overlap larger than
-  the step never reads an element a pass has overwritten; the readers
-  index the buffer as an uncarried member's. The shifted-inwards last
-  sub-tile, nearer than S to the one before, is computed whole. A carried
-  plan walks `_CARRY_WALK` sub-tiles a block, with two window buffers
-  where a window moves along the axis and both fit; carries that no
-  sub-tile's shared memory can hold are dropped, the largest first, and
-  named in the record (`carry_dropped`). A walk of 1 (`walk` and `n_buf`
-  are plan fields that the chip check and the sweep set:
-  `tools/k1_walk_sweep.py`, PERF.md) makes every step a first step: no
-  carry.
+  by the probe `_bandsplit_ok`): where one tile spans the whole x extent,
+  there are at least 4 row bands and the row loop is parallel(), the plan
+  records a band walk (`band_walk`), as the JAX planner decides its band
+  split. A block still computes one sub-tile with one window buffer: the
+  JAX planner's double-buffered window DMA has no counterpart, and no TMA.
+- A member stored at a loop that encloses its compute loop (`store_at`,
+  `store_root`) is computed whole in every sub-tile, as any other member:
+  the port does not carry it (the reference's sliding window) because the
+  carry measured slower on the H100 (PERF.md).
 
 The source of one group is emitted by this module: the member Funcs' point
 expressions and their footprint arithmetic, with the fixed helpers in
@@ -110,9 +89,7 @@ computes every value from the state before it, then writes them all
 predicates over the member's box widened by its RDom, so the inputs only
 an update reads (compositing's layers and `ops` table) are staged. The
 plain version applies each update with `updates.apply_update` over the
-member's box. Such a member is never carried (`carry_refused`), as the
-JAX planner slides only a member of one definition and one value. The
-consumer keeps one definition and one value, and an input of several
+member's box. The consumer keeps one definition and one value, and an input of several
 values stays rejected ("multi-value input"): no app reads one in a group.
 
 A read whose index depends on data (bilateral_grid's z plane, a lookup
@@ -155,8 +132,8 @@ The plain version folds in the same order (eval_torch's `fold`), so the
 two agree bit for bit.
 
 The plan records the schedule's async()/ring_buffer() request
-(`async_requested`, as the JAX planner does) beside what it did about it
-(`n_buf`, `prefetch`).
+(`async_requested`, as the JAX planner does); K1 has no second window
+buffer to answer it with.
 """
 from __future__ import annotations
 
@@ -166,7 +143,6 @@ import ctypes
 import hashlib
 import itertools
 import math
-import os
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -218,9 +194,6 @@ _REGS = 64
 _WARPS_FULL = 32
 _BYTE_OPS = 10.0
 _SYNC = 512000.0
-# a plan that carries members walks this many sub-tiles a block along its
-# axis (tools/k1_walk_sweep.py --carry, PERF.md)
-_CARRY_WALK = 3
 
 _CSRC = _build.CSRC
 
@@ -480,10 +453,6 @@ class _Stage:
         self.updates = list(updates)
         self.smem_off = 0
         self.index = 0
-        # a carried member: the dim along the walk axis (its buffer is
-        # kept across the walk's steps, the overlap moved to its front at
-        # each); None elsewhere
-        self.carry: Optional[int] = None
 
     def exprs(self) -> list:
         """Every expr a member evaluates: its values, then each update's
@@ -521,50 +490,21 @@ class _Stage:
 class GroupPlan:
     """Everything the kernel and its plain version need, fixed at plan
     time; only pointers, strides, realized bounds and the output region
-    are passed at launch. A block walks `walk` consecutive sub-tiles along
-    the plan's `axis` ("y": a band walk; "x": a plan that carries members
-    along x), and the walk is passed at launch too, so that one build runs
-    any of them: `walk` may be set to any length, with `n_buf` 2 where it
-    has a window that moves along the axis (the next sub-tile's copy of it
-    is then in flight by cp.async while the current one computes). The
-    carried members (`sliding`) compute their full footprint at a walk's
-    first step and only the new band at each later one, so a walk of 1
-    (one sub-tile per block, `n_buf` 1) computes every sub-tile whole. The
-    sub-tiles are `ncx` x `ncy` over the output extent."""
+    are passed at launch. A block computes one sub-tile: the grid is the
+    `ncx` x `ncy` sub-tiles over the output extent, and a block's shared
+    memory (`smem_bytes`) its windows' bytes then its members'."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
 
-    def shape(self) -> Tuple[int, int, int, int, Tuple[int, int]]:
-        """-> (walk, n_buf, member offset, shared-memory bytes, grid) of a
-        launch."""
-        walk, n_buf = self.walk, self.n_buf
-        if n_buf == 2 and not any(_walks(w, self.axis)
-                                  for w in self.windows):
-            raise ValueError(f"{self.f.name}: two window buffers need a "
-                             "walking window")
-        moff = self.fixed_bytes + n_buf * self.walk_bytes
-        if moff + self.member_bytes > _SMEM_LIMIT:
-            raise ValueError(f"{self.f.name}: {n_buf} window buffers take "
-                             f"{moff + self.member_bytes} bytes of shared "
-                             "memory")
-        grid = ((_cdiv(self.ncx, walk), self.ncy) if self.axis == "x"
-                else (self.ncx, _cdiv(self.ncy, walk)))
-        return walk, n_buf, moff, moff + self.member_bytes, grid
-
     def record(self) -> dict:
-        walk, n_buf, _moff, smem, grid = self.shape()
         return {"func": self.f.name, "tile": (self.tx, self.ty),
                 "sub_tile": (self.sx, self.sy),
-                "sub_tiles": (self.ncx, self.ncy), "grid": grid,
-                "smem_bytes": smem, "threads": self.threads,
+                "sub_tiles": (self.ncx, self.ncy),
+                "grid": (self.ncx, self.ncy),
+                "smem_bytes": self.smem_bytes, "threads": self.threads,
                 "min_blocks": self.min_blocks, "model": self.model,
-                "band_walk": self.band_walk, "axis": self.axis,
-                "walk": walk, "n_buf": n_buf,
-                "prefetch": "cp.async" if n_buf == 2 else "none",
-                "sliding": list(self.sliding),
-                "carry_dropped": dict(self.carry_dropped),
-                "carry_refused": dict(self.carry_refused),
+                "band_walk": self.band_walk,
                 "async_requested": self.async_requested,
                 "part": self.part,
                 "windows": [w.name for w in self.windows],
@@ -582,8 +522,8 @@ def band_walk_wanted(f: Func, xdim: str, ydim: Optional[str], ntx: int,
     extent, there are at least 4 row bands, and the outer var of y's split
     is parallel() while that of x's is not. The TPU remaps such a grid so
     that each of its two cores walks its bands in order with the next
-    band's windows in flight; here a block walks consecutive sub-tiles
-    along y, staging the next one's windows while it computes."""
+    band's windows in flight; K1 records the decision, and its blocks
+    compute one sub-tile each as in any other plan."""
     if ydim is None or ntx != 1 or nty < 4:
         return False
     s0 = f._defs[0].schedule
@@ -596,19 +536,14 @@ def _aligned(n: int) -> int:
     return _cdiv(n, 16) * 16
 
 
-def _member_layout(members: List["_Stage"], out_value,
-                   carried=frozenset()) -> int:
+def _member_layout(members: List["_Stage"], out_value) -> int:
     """Place the members' buffers by liveness (first fit): member k is
     written in phase k + 1 and its buffer is free after the phase of its
     last reader, a later member or the output (phase len + 1); a barrier
-    ends every phase. A carried member (its target's id in `carried`)
-    keeps its buffer across the steps of a walk, so it is live in every
-    phase and shares its bytes with no other. Sets each member's smem_off
-    (from the member base) and returns the bytes of the member region."""
-    phase = {id(m.target): 0 if id(m.target) in carried else k + 1
-             for k, m in enumerate(members)}
-    last = {id(m.target): len(members) + 2 if id(m.target) in carried
-            else k + 1 for k, m in enumerate(members)}
+    ends every phase. Sets each member's smem_off (from the member base)
+    and returns the bytes of the member region."""
+    phase = {id(m.target): k + 1 for k, m in enumerate(members)}
+    last = dict(phase)
 
     def reads(value, ph):
         def fn(e):
@@ -638,14 +573,13 @@ def _member_layout(members: List["_Stage"], out_value,
 
 def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
                sub_tile: Optional[Tuple[int, int]] = None,
-               threads: Optional[int] = None, part: str = "all",
-               carry: bool = True) -> GroupPlan:
+               threads: Optional[int] = None,
+               part: str = "all") -> GroupPlan:
     """The plan of f's group over `box`. The sub-tile and the threads a
     block are the rule's choice (`_plan_score`) unless given (the sweep);
     `part` "stage" or "compute" emits a kernel that only stages the windows
     or only computes (from whatever shared memory holds), for timing the
-    two apart. With `carry` False no member is carried (`_carry_wanted`):
-    the plan the schedule would get without its store levels."""
+    two apart."""
     if part not in ("all", "stage", "compute"):
         raise ValueError(f"part {part!r}")
     if len(f._defs) != 1 or len(f._defs[0].values) != 1:
@@ -813,99 +747,25 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     ext_y = extents[yi] if yi is not None else 1
     other = math.prod(e for i, e in enumerate(extents) if i not in (xi, yi))
     out_type = f._defs[0].values[0].dtype
-    # the carry: the walk axis and the members whose schedule asks for it
-    slide = _carry_axis(f, xdim, ydim, extents[xi] // tx, band_walk) \
-        if carry else None
-    asked = [m for m in members if slide and _carry_wanted(m, f, slide[1])]
-    refused = {m.name: _carry_refused(m) for m in asked
-               if _carry_refused(m)}
-    want = {id(m) for m in asked if m.name not in refused}
 
-    def layout(stages, carried=frozenset(), axis="y"):
-        """-> (fixed window bytes, walking window bytes, member bytes). A
-        walking window (one that moves along `axis`) moves as a block
-        walks, so it is restaged every step; the others are staged once.
-        `carried`: the ids of the carried members' targets."""
-        fixed = sum(_aligned(s.nbytes()) for s in stages
-                    if s.value is None and not _walks(s, axis))
-        moving = sum(_aligned(s.nbytes()) for s in stages
-                     if s.value is None and _walks(s, axis))
+    def layout(stages):
+        """-> (window bytes, member bytes), placing the members' buffers
+        (`_member_layout`)."""
+        win = sum(_aligned(s.nbytes()) for s in stages if s.value is None)
         by_id = {id(s.target): s for s in stages}
         mem = _member_layout([by_id[id(m)] for m in members
-                              if id(m) in by_id], svalue, carried)
-        return fixed, moving, mem
-
-    def carry_set(sx, sy, stages):
-        """The members carried at sub-tile (sx, sy), as the JAX planner's
-        gates (pallas_group.py:1243-1307) decide: asked for by the schedule,
-        the footprint moving along the walk axis by exactly the step (the
-        sub-tile's extent) with the same extent and an overlap, its other
-        dims not moving. Those shared memory cannot hold are dropped, the
-        largest first. -> ({stage name: walk dim}, {name: reason})."""
-        if not want:
-            return {}, {}
-        axis, dim = slide
-        step = sx if axis == "x" else sy
-        cand = {}
-        for st in stages:
-            if st.value is None or id(st.target) not in want:
-                continue
-            jw = [v.name for v in st.target._defs[0].args].index(dim)
-            moves = [j for j, (k, _d, _o, _e) in enumerate(st.dims)
-                     if k == axis]
-            if moves == [jw] and st.dims[jw][3] > step:
-                cand[st.name] = jw
-        by_name = {st.name: st for st in stages}
-        dropped = {}
-        while cand and sum(layout(stages, {id(by_name[n].target)
-                                           for n in cand}, axis)) \
-                > _SMEM_LIMIT:
-            big = max(cand, key=lambda n: (by_name[n].nbytes(), n))
-            del cand[big]
-            dropped[big] = (f"shared memory: carried with the others, the "
-                            f"group passes {_SMEM_LIMIT} bytes at sub-tile "
-                            f"{sx}x{sy}")
-        return cand, dropped
+                              if id(m) in by_id], svalue)
+        return win, mem
 
     def candidates(sx, sy, stages):
         """The rule's terms of sub-tile (sx, sy) at each thread count."""
-        carried, dropped = carry_set(sx, sy, stages)
-        axis = slide[0] if carried else "y"
-        walk, n_buf = (_CARRY_WALK, 2) if carried else (1, 1)
-        fixed, moving, mem = layout(stages, {id(st.target) for st in stages
-                                             if st.name in carried}, axis)
-        # HALIDE_TPU_NO_PIPELINE plans one window buffer, as the JAX
-        # planner turns its double-buffered window copies off
-        # (pallas_group.py:1221-1227): the A/B of tools/abtest.py
-        if n_buf == 2 and (not moving or fixed + 2 * moving + mem
-                           > _SMEM_LIMIT
-                           or os.environ.get("HALIDE_TPU_NO_PIPELINE")):
-            n_buf = 1
-        smem = fixed + n_buf * moving + mem
+        smem = sum(layout(stages))
         if smem > _SMEM_LIMIT:
             return []
-        step = sx if axis == "x" else sy
         out_pts = sx * sy * other
-
-        def share(st):
-            """The share of a member's footprint a step computes: a
-            carried one its band after the walk's first step."""
-            if st.name not in carried:
-                return 1.0
-            e = st.dims[carried[st.name]][3]
-            return (e + (walk - 1) * step) / (walk * e)
-
-        def moved(st):
-            """Slots a step spends moving a carried member's overlap (a
-            load and a store an element) after the walk's first step."""
-            if st.name not in carried:
-                return 0.0
-            e = st.dims[carried[st.name]][3]
-            return 2 * (walk - 1) / walk * (e - step) / e * math.prod(
-                x for _k, _d, _o, x in st.dims)
         ops = _weighted(point_ops(svalue)) * out_pts + sum(
-            _weighted(member_ops(st)) * share(st) * math.prod(
-                e for _k, _d, _o, e in st.dims) + moved(st)
+            _weighted(member_ops(st)) * math.prod(
+                e for _k, _d, _o, e in st.dims)
             for st in stages if st.value is not None)
         free = _weighted(point_ops(svalue)) * out_pts + sum(
             _weighted(member_ops(s)) * sx * sy * math.prod(
@@ -914,8 +774,6 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         staged = sum(s.data_bytes() for s in stages if s.value is None) \
             + out_pts * itemsize(out_type)
         ncx, ncy = _cdiv(ext_x, sx), _cdiv(ext_y, sy)
-        nblocks = (_cdiv(ncx, walk) * ncy if axis == "x"
-                   else ncx * _cdiv(ncy, walk))
         # outputs the grid computes per output of the extent: the last
         # column and row, shifted inwards, recompute their overlap
         cover = ncx * ncy * sx * sy / (ext_x * ext_y)
@@ -927,10 +785,9 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
             terms = dict(sub_tile=(sx, sy), threads=nt, smem_bytes=smem,
                          blocks_per_sm=bps, recompute=ops / max(free, 1),
                          ops_per_out=ops / out_pts,
-                         bytes_per_out=staged / out_pts, blocks=nblocks,
+                         bytes_per_out=staged / out_pts, blocks=ncx * ncy,
                          phases=len(members) + 2, out_pts=out_pts,
-                         cover=cover, carried=carried,
-                         dropped=dropped, walk=walk, n_buf=n_buf, axis=axis)
+                         cover=cover)
             terms["score"] = _plan_score(terms)
             out.append(terms)
         return out
@@ -959,8 +816,6 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
         cands.sort(key=plan_key)
         return cands, stages_of
 
-    # the planned walk is one sub-tile a block, whose windows are counted
-    # once; a walk set later with two buffers takes their bytes again
     cands, stages_of = search()
     if not cands:
         raise GroupUnsupported(
@@ -971,16 +826,13 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
     sx, sy = best["sub_tile"]
     stages = stages_of[(sx, sy)]
     _check_div_cover(stages, footprints, sub_scope, sx, sy)
-    axis, carried = best["axis"], best["carried"]
-    for st in stages:
-        st.carry = carried.get(st.name) if st.value is not None else None
-    windows = ([s for s in stages if s.value is None and not _walks(s, axis)]
-               + [s for s in stages if s.value is None and _walks(s, axis)])
+    # the windows still along y first, then those that move with the
+    # sub-tile's row: the order of the record and the launch arguments
+    windows = sorted((s for s in stages if s.value is None),
+                     key=lambda s: any(k == "y" for k, _d, _o, _e in s.dims))
     by_id = {id(s.target): s for s in stages}
     ordered = windows + [by_id[id(m)] for m in members if id(m) in by_id]
-    fixed_bytes, walk_bytes, member_bytes = layout(
-        stages, {id(st.target) for st in stages if st.carry is not None},
-        axis)
+    window_bytes, member_bytes = layout(stages)
     off = 0
     for k, s in enumerate(ordered):
         s.index = k
@@ -1002,11 +854,8 @@ def plan_group(f: Func, box: Box, ctx0: Ctx, graph,
                                      "bytes_per_out", "blocks_per_sm")},
         candidates=cands, part=part,
         windows=windows, members=ordered[len(windows):],
-        fixed_bytes=fixed_bytes, walk_bytes=walk_bytes,
-        member_bytes=member_bytes, band_walk=band_walk, axis=axis,
-        walk=best["walk"], n_buf=best["n_buf"],
-        sliding=sorted(carried), carry_dropped=best["dropped"],
-        carry_refused=refused,
+        window_bytes=window_bytes, member_bytes=member_bytes,
+        smem_bytes=window_bytes + member_bytes, band_walk=band_walk,
         async_requested=_async_requested(f, members))
     plan.source, plan.symbol, plan.arg_types = emit_source(plan, ctx0)
     return plan
@@ -1194,73 +1043,17 @@ def _plan_score(c: dict) -> float:
 
 
 def plan_key(c: dict):
-    """The planner's order of candidates: the most carried members (the
-    schedule's request: a carry is dropped only where no sub-tile holds it
-    in shared memory), then the rule, then the larger sub-tile, then fewer
-    threads."""
-    return (-len(c.get("carried", ())), _plan_score(c),
-            -c["sub_tile"][0] * c["sub_tile"][1], c["threads"])
-
-
-def _walks(s: "_Stage", axis: str = "y") -> bool:
-    """A stage that moves with the sub-tile's origin along `axis`."""
-    return any(k == axis for k, _d, _o, _e in s.dims)
-
-
-def _carry_axis(f: Func, xdim: str, ydim: Optional[str], ntx_full: int,
-                band_walk: bool) -> Optional[Tuple[str, str]]:
-    """(axis, its pure dim) along which f's group may carry members, as the
-    JAX planner's sequential grid dim runs (pallas_group.py:1230-1241): y
-    under the band walk (its band split), else x where the outer var of
-    x's split is not parallel() ("arbitrary") and at least two whole tiles
-    lie across (the steps of the JAX planner's interior grid); else
-    None."""
-    if band_walk:
-        return "y", ydim
-    s0 = f._defs[0].schedule
-    outer_of = {sp.old: sp.outer for sp in s0.splits if sp.kind == "split"}
-    par = {d.var for d in s0.dims if d.for_type == ForType.PARALLEL}
-    if outer_of.get(xdim) not in par and ntx_full >= 2:
-        return "x", xdim
-    return None
-
-
-def _carry_wanted(m: Func, f: Func, dim: str) -> bool:
-    """The schedule asks m to be carried along f's pure dim `dim`: m is
-    stored at root, or at a loop of f that encloses the outer loop of
-    dim's split in f's loop order (pallas_group.py:1255-1268; the
-    reference's SlidingWindow.cpp:347-453). A member stored where it is
-    computed is not carried."""
-    slv = m._fschedule.store_level
-    if not slv.defined() or slv.is_inlined():
-        return False
-    if slv.is_root():
-        return True
-    s0 = f._defs[0].schedule
-    order = [d.var for d in s0.dims]
-    outer = {sp.old: sp.outer for sp in s0.splits
-             if sp.kind == "split"}.get(dim)
-    var = getattr(slv.var, "name", slv.var)
-    return (slv.func is f and outer is not None and var in order
-            and outer in order and order.index(var) > order.index(outer))
-
-
-def _carry_refused(m: Func) -> Optional[str]:
-    """Why a member the schedule asks to carry is not carried: the JAX
-    planner slides only a member of one definition and one value
-    (pallas_group.py:1253). None where it may be carried."""
-    if len(m._defs) > 1:
-        return "update definition: not carried"
-    if len(m._defs[0].values) > 1:
-        return "tuple value: not carried"
-    return None
+    """The planner's order of candidates: the rule, then the larger
+    sub-tile, then fewer threads."""
+    return (_plan_score(c), -c["sub_tile"][0] * c["sub_tile"][1],
+            c["threads"])
 
 
 def _async_requested(f: Func, members) -> bool:
     """async() or ring_buffer() on a member or the consumer, as the JAX
-    planner records it (pallas_group.py:1216-1219). K1's answer is the
-    plan's own: the two-buffer walk stages the next sub-tile's windows
-    by cp.async while the current one computes (`n_buf`, `prefetch`)."""
+    planner records it (pallas_group.py:1216-1219). A record only: K1 has
+    no second window buffer, and stages each sub-tile's windows (by
+    cp.async where the strides allow) before it computes."""
     return any(g._fschedule.is_async or bool(g._fschedule.ring_buffer_extent)
                for g in list(members) + [f])
 
@@ -2087,17 +1880,9 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "",
         f"constexpr int SX = {plan.sx};",
         f"constexpr int SY = {plan.sy};",
-        "constexpr int SMEM_MAX = %d;  // the two-buffer layout's bytes"
-        % (plan.fixed_bytes + 2 * plan.walk_bytes + plan.member_bytes),
-        f"constexpr int WALK_BYTES = {plan.walk_bytes};",
+        f"constexpr int SMEM_MAX = {plan.smem_bytes};",
         f"constexpr int THREADS = {plan.threads};",
         f"constexpr int MIN_BLOCKS = {plan.min_blocks};",
-        "constexpr bool AXIS_X = %s;  // a block walks along x (else y)"
-        % ("true" if plan.axis == "x" else "false"),
-        "constexpr int AX = %d;       // the walk axis's output dim"
-        % (plan.xi if plan.axis == "x" or plan.yi is None else plan.yi),
-        "constexpr int STEP = %d;     // the sub-tile's extent along it"
-        % (plan.sx if plan.axis == "x" else plan.sy),
         "constexpr bool STAGE = %s;"
         % ("false" if plan.part == "compute" else "true"),
         "constexpr bool COMPUTE = %s;"
@@ -2154,7 +1939,6 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
           f"  long long out_stride[{nd_out}];",
           f"  int out_min[{nd_out}];",
           f"  int out_ext[{nd_out}];",
-          "  int rows, walk, nbuf, moff;",
           "};", ""]
 
     def walk_box(lines, ext, body):
@@ -2178,13 +1962,12 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     exts = {k: "  const int ext%d[%d] = {%s};" % (
         k, len(w.dims), ", ".join(str(e) for _k, _d, _o, e in w.dims))
         for k, w in enumerate(plan.windows)}
-    # the sub-tile of row r: origins, buffers (walking windows in buffer
-    # `buf`, members above the windows at p.moff), window origins and each
-    # window's copy phase
+    # the sub-tile (bx, by): origins, buffers (the windows first, the
+    # members after them), window origins and each window's copy phase
     L += [
-        "// Sub-tile (bx, r): column bx and row r of the sub-tile grid over",
+        "// Sub-tile (bx, by): column bx and row by of the sub-tile grid over",
         "// the output, the last column and row shifted inwards.",
-        "HL_FN Tile tile_at(const Params& p, int bx, int r, int buf,",
+        "HL_FN Tile tile_at(const Params& p, int bx, int by,",
         "                   unsigned char* smem) {",
         "  Tile t;",
         "  const int x0 = hl_shift_inwards(p.out_min[%d], p.out_ext[%d], SX, "
@@ -2192,10 +1975,10 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
     ]
     if plan.yi is not None:
         L.append("  const int y0 = hl_shift_inwards(p.out_min[%d], "
-                 "p.out_ext[%d], SY, r);" % (plan.yi, plan.yi))
+                 "p.out_ext[%d], SY, by);" % (plan.yi, plan.yi))
     else:
-        L.append("  const int y0 = 0; (void)r;")
-    L.append("  t.x0 = x0; t.y0 = y0; (void)buf;")
+        L.append("  const int y0 = 0; (void)by;")
+    L.append("  t.x0 = x0; t.y0 = y0;")
     for s in stages:
         cn, ct = _field(s), ctype(s.type)
         for j, (k, d, off, _e) in enumerate(s.dims):
@@ -2205,76 +1988,46 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
             base = f"{origin} + " if origin else ""
             L.append(f"  t.{cn}_lo[{j}] = {base}{off};")
         if s.value is not None:
-            L += [f"  t.{_vfield(s, k)} = (const {ctype(t)}*)(smem + p.moff "
-                  f"+ {s.smem_off + s.value_off(k)});"
+            L += [f"  t.{_vfield(s, k)} = (const {ctype(t)}*)(smem + "
+                  f"{plan.window_bytes + s.smem_off + s.value_off(k)});"
                   for k, t in enumerate(s.types)]
             continue
         k = plan.windows.index(s)
-        buf = " + buf * WALK_BYTES" if _walks(s, plan.axis) else ""
         L += ["  {", "  " + exts[k],
               f"    t.{cn}_ph = hl_window_phase<{ct}, {len(s.dims)}>("
               f"p.in{k}, t.{cn}_lo, ext{k});",
-              f"    t.{cn} = (const {ct}*)(smem + {s.smem_off}{buf}) + "
+              f"    t.{cn} = (const {ct}*)(smem + {s.smem_off}) + "
               f"(t.{cn}_ph > 0 ? t.{cn}_ph : 0);", "  }"]
     L += ["  return t;", "}", ""]
     L += [
-        "// Stage the windows of sub-tile (bx, r): the walking ones, and the",
-        "// fixed ones too where `fixed`. Copies by cp.async stay in flight",
-        "// until hl_async_wait().",
-        "HL_FN void stage(const Params& p, int bx, int r, int buf, int tid,",
-        "                 int nth, unsigned char* smem, bool fixed) {",
-        "  const Tile t = tile_at(p, bx, r, buf, smem);",
-        "  (void)fixed; (void)t; (void)tid; (void)nth;",
+        "// Stage the windows of sub-tile (bx, by). Copies by cp.async stay",
+        "// in flight until hl_async_wait().",
+        "HL_FN void stage(const Params& p, int bx, int by, int tid, int nth,",
+        "                 unsigned char* smem) {",
+        "  const Tile t = tile_at(p, bx, by, smem);",
+        "  (void)t; (void)tid; (void)nth;",
     ] + list(exts.values())
     for k, w in enumerate(plan.windows):
         cn, ct, nd = _field(w), ctype(w.type), len(w.dims)
-        call = (f"hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, t.{cn}_ph, "
-                f"{w.pitch()}, p.in{k}, t.{cn}_lo, ext{k}, tid, nth);")
-        L.append(f"  {call}" if _walks(w, plan.axis)
-                 else f"  if (fixed) {call}")
+        L.append(f"  hl_stage_window<{ct}, {nd}>(({ct}*)t.{cn}, t.{cn}_ph, "
+                 f"{w.pitch()}, p.in{k}, t.{cn}_lo, ext{k}, tid, nth);")
     L += ["}", ""]
-    step = plan.sx if plan.axis == "x" else plan.sy
-    carried = [m for m in plan.members if m.carry is not None]
     L += [
         "// Phase 1 + k evaluates member k over its footprint, the last",
         "// phase writes the sub-tile. Threads tid, tid + nth, ... share",
-        "// the work. A carried member computes its whole footprint at the",
-        "// first step of a walk (`first`), and at each later one only the",
-        "// last S elements along the walk (S the sub-tile's extent there):",
-        "// shift() has moved the rest, computed at the step before, to the",
-        "// front of its buffer.",
-        "HL_FN void phase(const Params& p, int bx, int r, int buf, int tid,",
-        "                 int nth, unsigned char* smem, int ph, bool first) {",
-        "  const Tile t = tile_at(p, bx, r, buf, smem);",
-        "  (void)first;",
+        "// the work.",
+        "HL_FN void phase(const Params& p, int bx, int by, int tid, int nth,",
+        "                 unsigned char* smem, int ph) {",
+        "  const Tile t = tile_at(p, bx, by, smem);",
         "  switch (ph) {",
     ]
     for k, m in enumerate(plan.members):
         cn = _field(m)
-        exts = [e for _k, _d, _o, e in m.dims]
-
-        def point_body(skip=0, j=None):
-            """The point at c (c + skip along dim j) into its element (the
-            walk's index i where the box is the whole footprint)."""
-            cs = [f"(c{d} + {skip})" if d == j else f"c{d}"
-                  for d in range(len(exts))]
-            at = "i" if j is None else " + ".join(
-                f"{c} * {math.prod(exts[:d])}" for d, c in enumerate(cs))
-            return [f"      point_{cn}(t, {at}, "
-                    + ", ".join(f"t.{cn}_lo[{d}] + {c}"
-                                for d, c in enumerate(cs)) + ");"]
         L.append(f"  case {k + 1}: {{")
-        if m.carry is None:
-            walk_box(L, exts, point_body())
-        else:
-            j, e = m.carry, exts[m.carry]
-            L.append("    if (first) {")
-            walk_box(L, exts, point_body())
-            L.append("    } else {")
-            band = list(exts)
-            band[j] = step
-            walk_box(L, band, point_body(e - step, j))
-            L.append("    }")
+        walk_box(L, [e for _k, _d, _o, e in m.dims], [
+            f"      point_{cn}(t, i, "
+            + ", ".join(f"t.{cn}_lo[{d}] + c{d}" for d in range(len(m.dims)))
+            + ");"])
         L += ["    break;", "  }"]
     L.append(f"  case {len(plan.members) + 1}: {{")
     ext, lo = [], []
@@ -2295,85 +2048,22 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                 + ", ".join(f"a{d}" for d in range(nd_out)) + ");")
     walk_box(L, ext, body)
     L += ["    break;", "  }", "  }", "}", ""]
-    nphase = len(plan.members) + 2
-    L += [f"constexpr int NPHASE = {nphase};", ""]
-    # the shift of the carried members' overlaps, in passes of at most S
-    # elements along the walk: within a pass no element is both read and
-    # written, and a barrier ends each pass
-    passes = max((_cdiv(m.dims[m.carry][3] - step, step) for m in carried),
-                 default=0)
     L += [
-        f"constexpr bool CARRY = {'true' if carried else 'false'};",
-        f"constexpr int SHIFT_PASSES = {passes};",
+        f"constexpr int NPHASE = {len(plan.members) + 2};",
         "",
-        "// Pass q of moving each carried member's overlap with the next",
-        "// sub-tile (its elements S..E-1 along the walk) S to the front.",
-        "HL_FN void shift(const Params& p, int bx, int r, int buf, int tid,",
-        "                 int nth, unsigned char* smem, int q) {",
-        "  const Tile t = tile_at(p, bx, r, buf, smem);",
-        "  (void)t; (void)tid; (void)nth;",
-        "  switch (q) {",
-    ]
-    for q in range(passes):
-        L.append(f"  case {q}: {{")
-        for m in carried:
-            j, cn, ct = m.carry, _field(m), ctype(m.type)
-            exts = [e for _k, _d, _o, e in m.dims]
-            n = min(step, exts[j] - step - q * step)
-            if n <= 0:
-                continue
-            box = list(exts)
-            box[j] = n
-            at = " + ".join(
-                (f"(c{d} + {q * step})" if d == j else f"c{d}")
-                + f" * {math.prod(exts[:d])}" for d in range(len(exts)))
-            walk_box(L, box, [
-                f"      {ct}* b = ({ct}*)t.{cn};",
-                f"      b[{at}] = b[{at} + {step * math.prod(exts[:j])}];"])
-        L += ["    break;", "  }"]
-    L += ["  }", "}", ""]
-    L += [
-        "// One block: walks `walk` consecutive sub-tiles in order along the",
-        "// axis, [k0, k0 + walk) of the p.rows there, at column bx or row by",
-        "// of the grid across it (one sub-tile where the walk is off). With",
-        "// two window buffers the next sub-tile's walking windows are staged",
-        "// while the current one computes. STAGE and COMPUTE are both true",
-        "// but in the kernels that time the two apart.",
+        "// One block: stages the windows of its sub-tile (bx, by), then runs",
+        "// the phases, a barrier between each two. STAGE and COMPUTE are",
+        "// both true but in the kernels that time the two apart.",
         "HL_FN void run_block(const Params& p, int bx, int by, int tid,",
         "                     int nth, unsigned char* smem) {",
-        "  const int k0 = (AXIS_X ? bx : by) * p.walk;",
-        "  const int k1 = hl_min<int>(k0 + p.walk, p.rows);",
-        "  for (int k = k0; k < k1; ++k) {",
-        "    const int cx = AXIS_X ? k : bx, cy = AXIS_X ? by : k;",
-        "    const int buf = p.nbuf == 2 ? (k - k0) & 1 : 0;",
-        "    // a carried step: not the walk's first, and S past the one",
-        "    // before (the shifted-inwards last sub-tile is nearer: computed",
-        "    // whole)",
-        "    const bool first = !CARRY || k == k0 ||",
-        "        hl_shift_inwards(p.out_min[AX], p.out_ext[AX], STEP, k) -",
-        "        hl_shift_inwards(p.out_min[AX], p.out_ext[AX], STEP, k - 1) !=",
-        "        STEP;",
-        "    const bool staged = STAGE && (k == k0 || p.nbuf == 1);",
-        "    if (staged) stage(p, cx, cy, buf, tid, nth, smem, k == k0);",
-        "    if (COMPUTE && !first) shift(p, cx, cy, buf, tid, nth, smem, 0);",
-        "    if (staged || (COMPUTE && !first)) {",
-        "      hl_async_wait();",
-        "      hl_sync();",
-        "    }",
-        "    for (int q = 1; COMPUTE && !first && q < SHIFT_PASSES; ++q) {",
-        "      shift(p, cx, cy, buf, tid, nth, smem, q);",
-        "      hl_sync();",
-        "    }",
-        "    const bool ahead = STAGE && p.nbuf == 2 && k + 1 < k1;",
-        "    if (ahead)",
-        "      stage(p, AXIS_X ? k + 1 : bx, AXIS_X ? by : k + 1, buf ^ 1, tid,",
-        "            nth, smem, false);",
-        "    for (int ph = 1; COMPUTE && ph < NPHASE; ++ph) {",
-        "      if (ph > 1) hl_sync();",
-        "      phase(p, cx, cy, buf, tid, nth, smem, ph, first);",
-        "    }",
-        "    if (ahead) hl_async_wait();",
+        "  if (STAGE) {",
+        "    stage(p, bx, by, tid, nth, smem);",
+        "    hl_async_wait();",
         "    hl_sync();",
+        "  }",
+        "  for (int ph = 1; COMPUTE && ph < NPHASE; ++ph) {",
+        "    if (ph > 1) hl_sync();",
+        "    phase(p, bx, by, tid, nth, smem, ph);",
         "  }",
         "}",
         "",
@@ -2396,8 +2086,7 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
                      ("ext", ("int", ctypes.c_int))):
         for j in range(nd_out):
             sig.append((ct[0], f"out_{kind}{j}", ct[1]))
-    for name in ("rows", "walk", "nbuf", "moff", "smem_bytes", "grid_x",
-                 "grid_y"):
+    for name in ("smem_bytes", "grid_x", "grid_y"):
         sig.append(("int", name, ctypes.c_int))
     params = ", ".join(f"{c} {n}" for c, n, _ in sig)
     fill = []
@@ -2414,8 +2103,6 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         fill.append(f"  p.out_stride[{j}] = out_stride{j}; "
                     f"p.out_min[{j}] = out_min{j}; "
                     f"p.out_ext[{j}] = out_ext{j};")
-    fill.append("  p.rows = rows; p.walk = walk; p.nbuf = nbuf; "
-                "p.moff = moff;")
     L += [
         "#ifdef __CUDACC__",
         "__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) "
@@ -2445,8 +2132,8 @@ def emit_source(plan: GroupPlan, ctx0: Ctx):
         "  return (int)cudaGetLastError();",
         "}",
         "#else",
-        "// Host build of the same blocks and walk, one thread each (CPU",
-        "// tests): the same staging paths, with plain copies.",
+        "// Host build of the same blocks, one thread each (CPU tests): the",
+        "// same staging paths, with plain copies.",
         f'extern "C" int HOST({params}) {{',
         "  Params p;",
     ] + fill + [
@@ -2491,8 +2178,7 @@ def build(plan: GroupPlan) -> ctypes.CDLL:
 def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     """The launcher's arguments after the kernel's own constants: pointers,
     strides and realized bounds per pipeline dim, the output region, the
-    sub-tiles along the walk axis, the walk (GroupPlan.shape) and the
-    grid."""
+    shared-memory bytes and the grid."""
     args = []
     for w, arr, rmins in zip(plan.windows, inputs, real_mins):
         nd = arr.ndim
@@ -2504,9 +2190,7 @@ def launch_args(plan: GroupPlan, inputs, real_mins, out) -> list:
     args.append(out.data_ptr())
     args += [out.stride(n - 1 - j) for j in range(n)]
     args += list(plan.mins) + list(plan.extents)
-    walk, n_buf, moff, smem, grid = plan.shape()
-    args += [plan.ncx if plan.axis == "x" else plan.ncy, walk, n_buf, moff,
-             smem, grid[0], grid[1]]
+    args += [plan.smem_bytes, plan.ncx, plan.ncy]
     return args
 
 

@@ -12,8 +12,9 @@ the loop-level concepts:
 - compute_at       -> producer evaluated in shared memory inside the
                       consumer's kernel, over its halo'd footprint
 - compute_root     -> materialized whole-array (eval_torch)
-- store_at + fold  -> recorded; the sliding-window carry is not ported yet,
-                      so store_at producers are recomputed per sub-tile
+- store_at + fold  -> recorded; a store_at producer is computed whole in
+                      every sub-tile: the port does not carry it, as the
+                      carry measured slower on the H100 (PERF.md)
 - async+ring_buffer-> recorded only
 """
 from __future__ import annotations

@@ -1,3 +1,4 @@
 """Command-line tools of the port (the JAX package's tools/, adapted):
-gen, rungen, traceviz, tilesearch, fitcost and abtest; `timer` is their
-frame timer."""
+gen, rungen, traceviz, tilesearch and fitcost; `timer` is their frame
+timer. The JAX package's abtest has no twin: K1 has no second window
+buffer to switch."""

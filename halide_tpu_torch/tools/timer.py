@@ -6,7 +6,7 @@ On the card: one warm-up call (plans, builds, fills the plan cache), then
 L2 (a frame's input is not in L2 when a caller realizes it) and a
 synchronize, bracketed by CUDA events on the current stream; the median.
 On the CPU: the same calls on the host clock, without a flush.
-`device_ms` times the card's work alone (fitcost, abtest).
+`device_ms` times the card's work alone (fitcost).
 """
 from __future__ import annotations
 

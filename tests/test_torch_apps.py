@@ -260,9 +260,9 @@ def test_stencil_chain(w, h, n, kw, env, walks, monkeypatch):
     """Whole-array, the kernel branch (one group per 8 stencils in bands
     of the output's width: the first anchor, wider by the reach of the
     stencils after it, takes two tiles across and is no band walk; the
-    last is one at 4 bands) and the sliding branch (narrower tiles: no
-    band walk; the store_at producers are carried along x, a block walking
-    the sub-tiles of a row: tests/test_torch_sliding.py)."""
+    last is one at 4 bands) and the slide branch (narrower tiles: no band
+    walk; the producers stored at the row loop, computed whole in every
+    sub-tile as any member: tests/test_torch_sliding.py)."""
     recs = _groups_of("stencil_chain", monkeypatch, env, width=w, height=h,
                       stencils=n, **kw)
     assert [r["band_walk"] for r in recs] == walks

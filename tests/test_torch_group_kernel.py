@@ -4,17 +4,16 @@ interpret mode) and against whole-array eval_torch, and the emitted CUDA
 source compiled with the host C++ compiler against the plain version. The
 kernel itself runs only on the card (the test marked gpu).
 
-The band walk (a block walking consecutive sub-tiles down full-width row
-bands, staging the next one's windows ahead) is decided as the JAX planner
-decides its band split, and the host build runs the same walk, so the
-walk's index arithmetic and its one and two window buffers are compared
-here; the kernel's own staging ahead (cp.async) only on the card.
+The band walk (full-width row bands) is recorded as the JAX planner
+decides its band split; its plan, as every plan, computes one sub-tile a
+block with one window buffer, and the host build runs the same blocks, so
+their index arithmetic is compared here; the kernel's own cp.async copies
+only on the card.
 
 blur is u16 and compares bit for bit. linear_blur is f32: the plain version
 and whole-array eval_torch do the same f32 operations in the same order and
 compare bit for bit; against the JAX package and against the host-compiled
 source (another libm's powf) it allows the app's tolerance, 1e-4."""
-import copy
 import ctypes
 import shutil
 import subprocess
@@ -444,8 +443,8 @@ BAND_CASES = {
 
 
 def _band_input(case, dtype="uint16"):
-    """u16 walking windows are staged plainly; i32 ones by cp.async ahead
-    of the compute where a walk has two window buffers."""
+    """The window in u16 or i32: two element sizes for the staging's
+    copies."""
     W, H = BAND_CASES[case][:2]
     return np.random.default_rng(21).integers(0, 1 << 14, (H, W)) \
         .astype(dtype)
@@ -498,107 +497,73 @@ def test_band_walk_decision_matches_jax_band_split(case):
     assert pg._last_plan is not None
     assert rec["band_walk"] == pg._last_plan["band_split"] \
         == BAND_CASES[case][5], (rec, pg._last_plan)
-    if not rec["band_walk"]:
-        assert rec["walk"] == 1 and rec["n_buf"] == 1
+    assert rec["grid"] == rec["sub_tiles"]
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, _band_golden(img))
 
 
 def test_band_walk_plan_fields():
-    """A band-walk plan is planned to walk one sub-tile a block; set to walk
-    further, its grid has a row of blocks per walk, and the walking window
-    is counted twice in the shared memory of a two-buffer walk, which any
-    walking window may take (its next copy is staged by cp.async, in
-    16-byte pieces where it lies inside the region, u16 as i32); a plan
-    without a walking window refuses two buffers."""
+    """A band-walk plan computes one sub-tile a block: its grid is the
+    sub-tiles of the output extent, and its shared memory its window's
+    bytes then its members', the same fields as any other plan's."""
     for dtype in ("uint16", "int32"):
         _img, pipe, _out = _band_realize("bands8", dtype)
         plan = gk.group_call(pipe, "cpu")[0]
-        assert plan.band_walk and plan.walk == 1 and plan.n_buf == 1
+        rec = plan.record()
+        assert plan.band_walk and rec["band_walk"]
         (win,) = plan.windows
-        assert gk._walks(win)
-        p2 = copy.copy(plan)
-        p2.walk = 3
-        assert p2.shape()[:2] == (3, 1)
-        assert p2.record()["prefetch"] == "none"
-        p2.n_buf = 2
-        walk, n_buf, moff, smem, grid = p2.shape()
-        assert (walk, n_buf) == (3, 2)
-        assert moff == plan.fixed_bytes + 2 * plan.walk_bytes
-        assert smem == moff + plan.member_bytes
+        assert [k for k, _d, _o, _e in win.dims] == ["x", "y"]
         ext_x, ext_y = plan.extents[plan.xi], plan.extents[plan.yi]
-        assert grid == (-(-ext_x // plan.sx), -(-(-(-ext_y // plan.sy)) // 3))
-        assert p2.record()["prefetch"] == "cp.async"
-        off = copy.copy(p2)
-        off.walk, off.n_buf = 1, 1
-        assert off.shape()[:2] == (1, 1)
-        assert off.record()["prefetch"] == "none"
-        unwalked = copy.copy(p2)
-        unwalked.windows = []
-        with pytest.raises(ValueError, match="walking window"):
-            unwalked.shape()
-
-
-def _walks_of(plan):
-    """The plan as planned, and with walks of 1, 3 and 5 sub-tiles (3 and 5
-    leave a short last walk) with one window buffer, and two where its
-    walking windows are staged ahead by cp.async."""
-    out = [plan]
-    for walk in (1, 3, 5):
-        for n_buf in (1, 2) if any(gk._walks(w) for w in plan.windows) \
-                else (1,):
-            p = copy.copy(plan)
-            p.walk, p.n_buf = walk, n_buf
-            out.append(p)
-    return out
+        assert rec["grid"] == rec["sub_tiles"] == (plan.ncx, plan.ncy) == (
+            -(-ext_x // plan.sx), -(-ext_y // plan.sy))
+        assert plan.window_bytes == gk._aligned(win.nbytes())
+        assert rec["smem_bytes"] == plan.smem_bytes \
+            == plan.window_bytes + plan.member_bytes
+        assert f"constexpr int SMEM_MAX = {plan.smem_bytes};" in plan.source
 
 
 @pytest.mark.parametrize("dtype", ["uint16", "int32"])
 @pytest.mark.parametrize("case", ["bands8", "ragged_tail", "store_root",
                                   "narrow_tile"])
 def test_band_walk_source_on_host_matches_golden(case, dtype, tmp_path):
-    """The g++ build of the emitted walk (the same blocks, walk and staging
-    as the card's, one thread a block; cp.async copies at once there) and
-    the plain version equal the golden bit for bit, at every walk length
-    and buffer count."""
+    """The g++ build of the planned launch (the same blocks and staging as
+    the card's, one thread a block; cp.async copies at once there) and the
+    plain version equal the golden bit for bit."""
     img, pipe, out = _band_realize(case, dtype)
     gold = _band_golden(img)
     np.testing.assert_array_equal(out, gold)
     plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
     assert plan.record()["band_walk"] == BAND_CASES[case][5]
-    assert any(gk._walks(w) for w in plan.windows)
+    assert any(k == "y" for w in plan.windows for k, _d, _o, _e in w.dims)
     assert "hl_stage_window<" in plan.source
     fn = _host_build(plan, tmp_path)
-    for p in _walks_of(plan):
-        host = torch.zeros(tuple(reversed(p.extents)),
-                           dtype=getattr(torch, dtype))
-        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
-        np.testing.assert_array_equal(host.numpy(), gold, err_msg=str(
-            p.record()))
-        plain = gk.run_plain(p, inputs, rmins, params, torch.device("cpu"))
-        np.testing.assert_array_equal(plain.numpy(), gold)
+    host = torch.zeros(tuple(reversed(plan.extents)),
+                       dtype=getattr(torch, dtype))
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), gold, err_msg=str(
+        plan.record()))
+    plain = gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"))
+    np.testing.assert_array_equal(plain.numpy(), gold)
 
 
 def test_band_walk_cp_async_route_on_host(tmp_path):
     """linear_blur in 4 full-width bands is a band walk; its f32 window is
-    staged ahead by cp.async in a two-buffer walk, which the host build
-    copies at once. Its store_root blur_x is carried down the walk, which
-    is planned at the carried walk's length."""
+    staged by cp.async on the card, which the host build copies at once.
+    Its store_root blur_x is computed whole in every sub-tile, as the
+    planned launch of one sub-tile a block does."""
     app, data, out, (plan, inputs, rmins, _p, _r) = _group_call(
         "linear_blur", width=64, height=1024)
     rec = plan.record()
     assert rec["band_walk"] and rec["tile"] == (64, 256)
-    assert rec["sliding"] == ["blur_x"] and rec["axis"] == "y"
-    assert (rec["walk"], rec["n_buf"], rec["prefetch"]) == (
-        gk._CARRY_WALK, 2, "cp.async")
-    assert any(gk._walks(w) for w in plan.windows)
+    assert rec["members"] == ["blur_x", "simple_blur"]
+    assert rec["grid"] == rec["sub_tiles"]
+    assert "hl_stage_window<float, 3>" in plan.source
     np.testing.assert_allclose(out, app.reference(**data), rtol=1e-4,
                                atol=1e-4)
     fn = _host_build(plan, tmp_path)
-    for p in _walks_of(plan):
-        host = torch.zeros(tuple(reversed(p.extents)), dtype=torch.float32)
-        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
-        np.testing.assert_allclose(host.numpy(), out, rtol=1e-4, atol=1e-4)
+    host = torch.zeros(tuple(reversed(plan.extents)), dtype=torch.float32)
+    assert fn(*gk.launch_args(plan, inputs, rmins, host)) == 0
+    np.testing.assert_allclose(host.numpy(), out, rtol=1e-4, atol=1e-4)
 
 
 def test_plain_version_over_some_sub_tile_rows():
@@ -684,8 +649,7 @@ def test_band_walk_kernel_matches_plain_version_on_the_card(case, dtype):
     plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
     torch.cuda.synchronize()
     assert torch.equal(out.data, plain)
-    for p in _walks_of(plan):
-        assert torch.equal(gk.launch(p, inputs, rmins), plain), p.record()
+    assert torch.equal(gk.launch(plan, inputs, rmins), plain), plan.record()
     np.testing.assert_array_equal(out.to_numpy(), _band_golden(img))
 
 
@@ -1129,8 +1093,8 @@ def test_half_literals_round_to_the_type():
 
 def test_async_ring_buffer_plan_recorded():
     """tests/test_pallas.py:179 in both packages: async() and ring_buffer()
-    on a member are recorded as requested, beside what K1 did about it
-    (its two-buffer walk prefetches by cp.async)."""
+    on a member are recorded as requested; K1 answers with its one plan,
+    one sub-tile a block with one window buffer, either way."""
     import halide_tpu as hl
     from halide_tpu.ops import pallas_group as pg
     W, H = 256, 64
@@ -1158,7 +1122,7 @@ def test_async_ring_buffer_plan_recorded():
             [W - 2, H - 2], jit=False).to_numpy())
         assert rec["async_requested"] is pg._last_plan["async_requested"] \
             is asynchronous
-        assert rec["prefetch"] in ("cp.async", "none")
+        assert rec["grid"] == rec["sub_tiles"]
         np.testing.assert_array_equal(got, ref)
 
 

@@ -23,9 +23,10 @@ On the CPU each case's plan is held against the JAX planner's (a spy on
 `pallas_group.try_pallas_group`, its reject reason `_last_reject`), the
 port's plain version against the JAX package (integers bit for bit,
 floats within 1e-6) and numpy, and the emitted source, built with g++,
-against the plain version bit for bit. A member with an update is never
-carried (`carry_refused`), as the JAX planner never slides one. On the
-card (marked gpu) the kernel equals its plain version bit for bit.
+against the plain version bit for bit. A member with an update stored at
+the row loop is computed whole in every sub-tile, as every member is; the
+JAX planner does not slide one either. On the card (marked gpu) the kernel
+equals its plain version bit for bit.
 """
 import numpy as np
 import pytest
@@ -262,9 +263,9 @@ def test_plain_runs_equal_its_sub_tiles(case, monkeypatch):
 
 def test_member_with_an_update_is_not_carried():
     """The schedule of tests/test_pallas.py:361 (the member stored at the
-    row loop, carried along x) with an update on the member: neither
-    planner carries it (the port names the reason, `carry_refused`); the
-    values equal the JAX package's and numpy's."""
+    row loop, which the JAX planner carries along x) with an update on the
+    member: neither planner carries it, the port's plan is one sub-tile a
+    block, and the values equal the JAX package's and numpy's."""
     import halide_tpu as hl
     from halide_tpu.ops import pallas_group as pg
     img = np.random.default_rng(11).integers(0, 1 << 14, (64, 256),
@@ -285,9 +286,7 @@ def test_member_with_an_update_is_not_carried():
     got = build(ht).realize([254, 62], device="cpu").to_numpy()
     assert sum(gk.rejects.values()) == before
     rec = gk.last_plan
-    assert rec["sliding"] == [] and rec["walk"] == 1
-    assert rec["carry_refused"] == {"swu_bx": "update definition: not "
-                                              "carried"}
+    assert rec["members"] == ["swu_bx"] and rec["grid"] == rec["sub_tiles"]
     pg._last_plan = None
     want = np.asarray(build(hl).realize([254, 62], jit=False).to_numpy())
     assert pg._last_plan is not None and pg._last_plan["sliding"] == []

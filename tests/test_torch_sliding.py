@@ -1,22 +1,20 @@
-"""The sliding-window carry of the stencil-group kernel (K1): a member stored
-at a loop that encloses its compute loop (`store_at(f, yo)` or
-`store_root()`) keeps its buffer across the sub-tiles a block walks, computes
-its whole footprint at the walk's first step and only the new band at each
-later one. The JAX package's group kernel does the same across its
-sequential grid steps (`pallas_group.py:1229-1307`, `:1476-1521`).
+"""Members stored at a loop that encloses their compute loop
+(`store_at(f, yo)` or `store_root()`) in the stencil-group kernel (K1). The
+reference and the JAX package slide such a member's window: they keep its
+buffer across the steps of a loop and compute only the new band at each
+(`pallas_group.py:1229-1307`, `:1476-1521`). The port computes it whole
+in every sub-tile, as any other member, because the carry measured slower
+on the H100 (PERF.md): its store level changes no plan.
 
-On the CPU: the port's `sliding` against the JAX planner's
-(`pallas_group._last_plan["sliding"]`) on the carry cases of
-tests/test_pallas.py, linear_blur and stencil_chain's slide branch, the
-outputs against the JAX package's (Pallas in interpret mode) and numpy; and
-the emitted source built with g++, walking 1, 2, 3 and 5 sub-tiles a block
-along x and along y with one and two window buffers, against the plain
-version and numpy, bit for bit (integer pipelines). The host build runs the
-card's blocks one after another with one thread each, so the carry's
-passes that move the overlap to the front of a buffer, its first-step and
-band loops and the shifted-inwards last sub-tile are the card's; only the
-card's own copies and barriers run on the card (the tests marked gpu)."""
-import copy
+On the CPU: the carry cases of tests/test_pallas.py, a member chain,
+linear_blur and stencil_chain's slide branch planned with nothing carried,
+one sub-tile a block, their outputs against the JAX package's (Pallas in
+interpret mode) and numpy, bit for bit (integer pipelines); the emitted
+source built with g++ against the plain version and numpy, at the planned
+sub-tile and at sub-tiles whose step is below the members' overlap on
+ragged extents (the last sub-tile shifted inwards); and each group's plan
+and source the same with and without its members' store levels. The card's
+own copies and barriers run only on the card (the tests marked gpu)."""
 
 import numpy as np
 import pytest
@@ -102,10 +100,11 @@ def _box3_input(case):
 
 @pytest.mark.parametrize("case", sorted(BOX3_CASES))
 def test_carry_plan_and_values_match_jax(case, monkeypatch):
-    """The port carries exactly the members the JAX planner carries, along
-    the same axis (x across the tiles of a row; y down the band walk, with
-    the JAX package's double-buffered DMA forced as its test does), and the
-    outputs are bit for bit the JAX package's and numpy's."""
+    """The JAX planner carries the case's members (along x across the
+    tiles of a row; y down its band split, with its double-buffered DMA
+    forced as its test does); the port carries none and computes one
+    sub-tile a block, and the outputs are bit for bit the JAX package's
+    and numpy's."""
     import halide_tpu as hl
     img = _box3_input(case)
     by, sizes = _box3(ht, img, case)
@@ -114,77 +113,44 @@ def test_carry_plan_and_values_match_jax(case, monkeypatch):
         monkeypatch.setenv("HALIDE_TPU_FORCE_PIPELINE", "1")
     jby, _ = _box3(hl, img, case)
     ref, jrec = _realize_jax(jby, sizes)
-    want = BOX3_CASES[case][3]
-    assert rec["sliding"] == jrec["sliding"] == want, (rec, jrec)
+    assert jrec["sliding"] == BOX3_CASES[case][3], jrec
+    assert "sliding" not in rec and rec["grid"] == rec["sub_tiles"], rec
     assert rec["band_walk"] == jrec["band_split"] == (case == "y_carry")
-    if want:
-        assert rec["axis"] == ("y" if case == "y_carry" else "x")
-        assert rec["walk"] >= 2
-    else:
-        assert rec["walk"] == 1
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, _box3_golden(img, case))
 
 
 @pytest.mark.parametrize("case", ["x_carry", "y_carry"])
 def test_carry_cases_source_on_host(case, tmp_path):
-    """The g++ build of the carried plan at walks of 1, 2, 3 and 5
-    sub-tiles, with one window buffer and two, equals numpy bit for bit;
-    so does the plan built with no carry."""
+    """The g++ build of the planned launch, whose member the JAX planner
+    carries, equals the plain version and numpy bit for bit."""
     img = _box3_input(case)
     by, sizes = _box3(ht, img, case)
     pipe = ht.Pipeline(by)
     out, _rec = _realize_port(pipe, sizes)
     gold = _box3_golden(img, case)
     np.testing.assert_array_equal(out, gold)
-    plan, inputs, rmins, _p, _r = gk.group_call(pipe, "cpu")
-    assert plan.sliding == BOX3_CASES[case][3]
-    assert ("CARRY = true" in plan.source) == bool(plan.sliding)
-    fn = _host_build(plan, tmp_path)
-    for p in _walks_of(plan):
-        host = torch.zeros(tuple(reversed(p.extents)), dtype=torch.uint16)
-        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
-        np.testing.assert_array_equal(host.numpy(), gold,
-                                      err_msg=str(p.record()))
-    (q, *_x), = gk.group_calls(pipe, "cpu", lambda p: [dict(
-        sub_tile=(plan.sx, plan.sy), threads=plan.threads, carry=False)])
-    assert q.sliding == [] and q.walk == 1
-    assert "CARRY = false" in q.source and "SHIFT_PASSES = 0" in q.source
-    host = torch.zeros(tuple(reversed(q.extents)), dtype=torch.uint16)
-    assert _host_build(q, tmp_path)(*gk.launch_args(q, inputs, rmins,
-                                                    host)) == 0
+    plan, inputs, rmins, params, _r = gk.group_call(pipe, "cpu")
+    host = torch.zeros(tuple(reversed(plan.extents)), dtype=torch.uint16)
+    assert _host_build(plan, tmp_path)(*gk.launch_args(plan, inputs, rmins,
+                                                       host)) == 0
+    plain = gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"))
+    np.testing.assert_array_equal(host.numpy(), plain.numpy())
     np.testing.assert_array_equal(host.numpy(), gold)
 
 
-def _walks_of(plan):
-    """The plan walking 1, 2, 3 and 5 sub-tiles a block along its axis,
-    with one window buffer and, where a window moves along the axis, two
-    (where they fit the shared memory)."""
-    out = []
-    for walk in (1, 2, 3, 5):
-        for n_buf in (1, 2) if any(gk._walks(w, plan.axis)
-                                   for w in plan.windows) else (1,):
-            p = copy.copy(plan)
-            p.walk, p.n_buf = walk, n_buf
-            try:
-                p.shape()
-            except ValueError:
-                continue
-            out.append(p)
-    return out
-
-
 # ---------------------------------------------------------------------------
-# a member chain carried along x or y at narrow sub-tiles: overlaps larger
-# than the step, ragged extents (the last sub-tile shifted inwards), members
-# carried beside one that is not
+# a member chain stored at the row loop (x) or at root (y), at narrow
+# sub-tiles: overlaps larger than the step, ragged extents (the last
+# sub-tile shifted inwards)
 # ---------------------------------------------------------------------------
 
 def _chain(m, a, axis, device="cpu"):
     """inp (edge-clamped, i32) -> c0 -> c1 -> c2, each reading its producer
     at (x - 1, y), (x + 2, y + 1) and (x, y - 1), -> out (tiled) reading c2
-    at x and x + 1. Along x all three carry (overlaps 7, 4 and 1); along y
-    c0 and c1 (4 and 2), c2 being read at y alone. -> (pipeline, sizes)."""
+    at x and x + 1. The JAX planner carries all three along x (overlaps 7,
+    4 and 1), and c0 and c1 along y (4 and 2), c2 being read at y alone.
+    -> (pipeline, sizes)."""
     x, y = m.Var("x"), m.Var("y")
     xo, yo, xi, yi = m.Var("xo"), m.Var("yo"), m.Var("xi"), m.Var("yi")
     inp = m.ImageParam(m.Int(32), 2, "inp")
@@ -236,16 +202,17 @@ CHAIN_SUBS = {"x": [(4, 8), (6, 4)], "y": [(8, 2), (30, 2)]}
 
 @pytest.mark.parametrize("axis", ["x", "y"])
 def test_chain_carry_matches_jax(axis):
-    """The planner's own plan of the chain: the port's `sliding` equals the
-    JAX planner's, and the outputs equal the JAX package's and numpy's."""
+    """The planner's own plan of the chain, whose members the JAX planner
+    carries: the port carries none, and the outputs equal the JAX
+    package's and numpy's."""
     import halide_tpu as hl
     a = _chain_input(axis)
     pipe, sizes = _chain(ht, a, axis)
     out, rec = _realize_port(pipe, sizes)
     ref, jrec = _realize_jax(_chain(hl, a, axis)[0], sizes)
-    assert rec["sliding"] == jrec["sliding"], (rec, jrec)
-    assert rec["sliding"] == (["c0", "c1", "c2"] if axis == "x"
-                              else ["c0", "c1"])
+    assert jrec["sliding"] == (["c0", "c1", "c2"] if axis == "x"
+                               else ["c0", "c1"]), jrec
+    assert "sliding" not in rec and rec["grid"] == rec["sub_tiles"], rec
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, _chain_golden(a))
 
@@ -253,8 +220,7 @@ def test_chain_carry_matches_jax(axis):
 @pytest.mark.parametrize("axis", ["x", "y"])
 def test_chain_carry_source_on_host(axis, tmp_path):
     """At sub-tiles whose step is below the members' overlap, on a ragged
-    extent: the g++ build walking 1, 2, 3 and 5 sub-tiles a block, with one
-    and two window buffers, and the plain version equal numpy bit for
+    extent: the g++ build and the plain version equal numpy bit for
     bit."""
     a = _chain_input(axis)
     pipe, sizes = _chain(ht, a, axis)
@@ -265,10 +231,10 @@ def test_chain_carry_source_on_host(axis, tmp_path):
     assert len(calls) == len(CHAIN_SUBS[axis])
     for plan, inputs, rmins, params, _r in calls:
         rec = plan.record()
-        assert rec["axis"] == axis and rec["sliding"], rec
         step = plan.sx if axis == "x" else plan.sy
-        over = [m.dims[m.carry][3] - step for m in plan.members
-                if m.carry is not None]
+        j = "xy".index(axis)
+        # the members' overlap with the next sub-tile along the axis
+        over = [m.dims[j][3] - step for m in plan.members]
         assert max(over) > step, rec
         n = plan.ncx if axis == "x" else plan.ncy
         ext = plan.extents[plan.xi if axis == "x" else plan.yi]
@@ -277,74 +243,23 @@ def test_chain_carry_source_on_host(axis, tmp_path):
         plain = gk.run_plain(plan, inputs, rmins, params,
                              torch.device("cpu"))
         np.testing.assert_array_equal(plain.numpy(), gold)
-        fn = _host_build(plan, tmp_path)
-        walks = _walks_of(plan)
-        assert {p.n_buf for p in walks} == {1, 2}
-        for p in walks:
-            host = torch.zeros((a.shape[0], a.shape[1]), dtype=torch.int32)
-            assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
-            np.testing.assert_array_equal(host.numpy(), gold,
-                                          err_msg=str(p.record()))
-
-
-def test_carried_members_keep_their_shared_memory():
-    """A carried member's buffer is live over every phase of a walk: no
-    other member's bytes overlap it, where the same plan with no carry lets
-    the chain's buffers share by liveness."""
-    a = _chain_input("x")
-    pipe, sizes = _chain(ht, a, "x")
-    _realize_port(pipe, sizes)
-    (p, *_a), (q, *_b) = gk.group_calls(pipe, "cpu", lambda p: [
-        dict(sub_tile=(8, 4), threads=128),
-        dict(sub_tile=(8, 4), threads=128, carry=False)])
-    assert p.sliding == ["c0", "c1", "c2"] and q.sliding == []
-    spans = [(m.smem_off, m.smem_off + gk._aligned(m.nbytes()))
-             for m in p.members]
-    for i, (lo1, hi1) in enumerate(spans):
-        for lo2, hi2 in spans[i + 1:]:
-            assert hi1 <= lo2 or hi2 <= lo1, spans
-    assert p.member_bytes == sum(gk._aligned(m.nbytes()) for m in p.members)
-    assert q.member_bytes < p.member_bytes
-
-
-def test_carry_dropped_for_shared_memory_is_named():
-    """A sub-tile at which the carried members would pass the shared memory
-    a block can take drops carries, the largest first, until the group fits
-    (here all three: every member of the chain is live at once while one
-    is carried), and the record names each dropped member and the reason;
-    the values do not change."""
-    a = _chain_input("x")
-    pipe, sizes = _chain(ht, a, "x")
-    _realize_port(pipe, sizes)
-    limit = gk._SMEM_LIMIT
-    try:
-        (p, inputs, rmins, params, _r), = gk.group_calls(
-            pipe, "cpu", lambda p: [dict(sub_tile=(16, 8), threads=128)])
-        full = p.fixed_bytes + p.walk_bytes + p.member_bytes
-        gk._SMEM_LIMIT = full - 1
-        (q, *_x), = gk.group_calls(
-            pipe, "cpu", lambda p: [dict(sub_tile=(16, 8), threads=128)])
-    finally:
-        gk._SMEM_LIMIT = limit
-    assert p.sliding == ["c0", "c1", "c2"] and not p.carry_dropped
-    assert q.carry_dropped and len(q.sliding) < 3
-    assert set(q.carry_dropped) == set(p.sliding) - set(q.sliding)
-    assert all("shared memory" in r for r in q.carry_dropped.values())
-    np.testing.assert_array_equal(
-        gk.run_plain(q, inputs, rmins, params, torch.device("cpu")).numpy(),
-        _chain_golden(a))
+        host = torch.zeros((a.shape[0], a.shape[1]), dtype=torch.int32)
+        assert _host_build(plan, tmp_path)(*gk.launch_args(
+            plan, inputs, rmins, host)) == 0
+        np.testing.assert_array_equal(host.numpy(), gold,
+                                      err_msg=str(rec))
 
 
 # ---------------------------------------------------------------------------
-# the apps: linear_blur (its store_root members, down the band walk) and
-# stencil_chain's slide branch (store_at the anchor's row loop, along x)
+# the apps: linear_blur (its store_root members, in full-width bands) and
+# stencil_chain's slide branch (store_at the anchor's row loop)
 # ---------------------------------------------------------------------------
 
 def test_linear_blur_carry_matches_jax(monkeypatch):
-    """linear_blur in 4 full-width bands: the port carries blur_x down the
-    band walk as the JAX planner does under its band split; simple_blur is
-    read at y alone, no overlap, and is not carried. Values within the
-    app's tolerance of the JAX package's (f32, another libm's pow)."""
+    """linear_blur in 4 full-width bands: the JAX planner carries blur_x
+    down its band split (simple_blur is read at y alone, no overlap); the
+    port carries nothing. Values within the app's tolerance of the JAX
+    package's (f32, another libm's pow)."""
     from halide_tpu.apps import get
     from halide_tpu_torch.apps import linear_blur
     app = linear_blur.build(64, 1024)
@@ -358,8 +273,9 @@ def test_linear_blur_carry_matches_jax(monkeypatch):
     from halide_tpu.ops import pallas_group as pg
     pg._last_plan = None
     ref = np.asarray(japp.realize().to_numpy())
-    assert rec["sliding"] == pg._last_plan["sliding"] == ["blur_x"]
-    assert rec["axis"] == "y" and rec["walk"] >= 2
+    assert pg._last_plan["sliding"] == ["blur_x"]
+    assert "sliding" not in rec and rec["grid"] == rec["sub_tiles"], rec
+    assert rec["band_walk"] and rec["members"] == ["blur_x", "simple_blur"]
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(out, app.reference(**data), rtol=1e-4,
                                atol=1e-4)
@@ -367,9 +283,9 @@ def test_linear_blur_carry_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("w,h", [(256, 128), (256, 512)])
 def test_stencil_chain_slide_carry_matches_jax(w, h, monkeypatch):
-    """stencil_chain's slide=128 branch (12 stencils): each group's carried
-    members equal the JAX planner's for the same group, every member of a
-    group with an overlap along x carried."""
+    """stencil_chain's slide=128 branch (12 stencils): the JAX planner
+    carries every member of each group along x; the port carries none, and
+    the outputs equal the JAX package's and numpy's bit for bit."""
     from halide_tpu.apps import get
     from halide_tpu.ops import pallas_group as pg
     from halide_tpu_torch.apps import stencil_chain
@@ -393,19 +309,18 @@ def test_stencil_chain_slide_carry_matches_jax(w, h, monkeypatch):
     ref = np.asarray(japp.realize().to_numpy())
     assert [r["func"] for r in recs] == ["stage_7", "stage_11"]
     for r in recs:
-        assert r["sliding"] == pg._plans_by_name[r["func"]]["sliding"], (
-            r, pg._plans_by_name[r["func"]])
-        assert r["sliding"] == sorted(r["members"])
-        assert r["axis"] == "x" and r["walk"] >= 2
+        assert pg._plans_by_name[r["func"]]["sliding"] == sorted(
+            r["members"]), pg._plans_by_name[r["func"]]
+        assert "sliding" not in r and r["grid"] == r["sub_tiles"], r
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_array_equal(out, app.reference(**data))
 
 
 def test_stencil_chain_slide_source_on_host(tmp_path):
-    """stencil_chain's first slide group (8 stencils, 15 carried members) at
-    a 16x8 sub-tile, where the deep members' overlap (up to 32 columns) is
-    twice the step: the g++ build walking 1, 3 and 5 sub-tiles equals the
-    plain version bit for bit."""
+    """stencil_chain's first slide group (8 stencils, 15 members stored at
+    the row loop) at a 16x8 sub-tile, where the deep members' overlap (up
+    to 32 columns) is twice the step: the g++ build equals the plain
+    version bit for bit."""
     from halide_tpu_torch.apps import stencil_chain
     app = stencil_chain.build(256, 128, 12, slide=128)
     app.bind(app.make_inputs(0), "cpu")
@@ -414,16 +329,77 @@ def test_stencil_chain_slide_source_on_host(tmp_path):
         c for c in gk.group_calls(app.pipeline, "cpu", lambda p: [
             dict(sub_tile=(16, 8), threads=128)] if p.f.name == "stage_7"
             else [])]
-    assert len(plan.sliding) == 15
-    assert max(m.dims[m.carry][3] for m in plan.members) - 16 > 16
+    assert len(plan.members) == 15
+    assert max(m.dims[0][3] for m in plan.members) - 16 > 16
     plain = gk.run_plain(plan, inputs, rmins, params, torch.device("cpu"))
-    fn = _host_build(plan, tmp_path)
-    for walk in (1, 3, 5):
-        p = copy.copy(plan)
-        p.walk = walk
-        host = torch.zeros(tuple(reversed(p.extents)), dtype=torch.uint16)
-        assert fn(*gk.launch_args(p, inputs, rmins, host)) == 0
-        np.testing.assert_array_equal(host.numpy(), plain.numpy())
+    host = torch.zeros(tuple(reversed(plan.extents)), dtype=torch.uint16)
+    assert _host_build(plan, tmp_path)(*gk.launch_args(
+        plan, inputs, rmins, host)) == 0
+    np.testing.assert_array_equal(host.numpy(), plain.numpy())
+
+
+# ---------------------------------------------------------------------------
+# the store level changes no plan
+# ---------------------------------------------------------------------------
+
+def _lesson_30(store):
+    """Lesson 30's schedule (tutorials_torch/lesson_30_sliding_and_tails.py):
+    a vertical blur computed at the x tiles of a horizontal one and stored
+    at its row loop, on extents that are not tile multiples."""
+    x, y = ht.Var("x"), ht.Var("y")
+    xo, yo, xi, yi = (ht.Var(n) for n in "xo yo xi yi".split())
+    img = np.random.default_rng(30).integers(0, 1 << 14, (256, 512),
+                                             np.uint16)
+    inp = ht.Buffer(img, name="l30_in")
+    bv, bh = ht.Func("l30_bv"), ht.Func("l30_bh")
+    bv[x, y] = (inp[x, y] + inp[x, y + 1] + inp[x, y + 2]) / 3
+    bh[x, y] = (bv[x, y] + bv[x + 1, y] + bv[x + 2, y]) / 3
+    bh.tile(x, y, xo, yo, xi, yi, 128, 64).vectorize(xi).parallel(yo)
+    bv.compute_at(bh, xo)
+    if store:
+        bv.store_at(bh, yo)
+    return lambda: ht.Pipeline(bh).realize([510, 254], device="cpu")
+
+
+def _app_realize(name, **kw):
+    from halide_tpu_torch.apps import get
+
+    def make(store):
+        app = get(name)(**kw)
+        if not store:
+            from halide_tpu_torch.pipeline import gather_graph
+            from halide_tpu_torch.schedule import LoopLevel
+            for fn in gather_graph(app.pipeline.outputs).funcs:
+                if fn._fschedule.compute_level.kind == "at":
+                    fn._fschedule.store_level = LoopLevel()
+        app.bind(app.make_inputs(0), "cpu")
+        return lambda: app.realize("cpu")
+    return make
+
+
+STORE_CASES = {
+    "linear_blur": _app_realize("linear_blur", width=64, height=1024),
+    "stencil_chain_slide128": _app_realize("stencil_chain", width=256,
+                                           height=256, stencils=12,
+                                           slide=128),
+    "lesson_30": _lesson_30,
+}
+
+
+@pytest.mark.parametrize("case", sorted(STORE_CASES))
+def test_store_levels_change_no_plan(case):
+    """Each group's plan (its record, the rule's terms) and emitted source
+    are the same with and without its members' store_at/store_root."""
+    def plans(store):
+        got = []
+        with gk.planning(lambda plan, _m, _p: got.append(plan)):
+            STORE_CASES[case](store)()
+        return got
+    with_store, without = plans(True), plans(False)
+    assert with_store and len(with_store) == len(without)
+    for p, q in zip(with_store, without):
+        assert p.record() == q.record()
+        assert p.source == q.source
 
 
 # ---------------------------------------------------------------------------
@@ -446,11 +422,9 @@ def test_carry_cases_kernel_on_the_card(case):
     out = pipe.realize(sizes)
     assert gk.launches == launches + 1
     plan, inputs, rmins, params, _r = gk.group_call(pipe)
-    assert plan.sliding == BOX3_CASES[case][3]
     plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device)
     assert torch.equal(out.data, plain)
-    for p in _walks_of(plan):
-        assert torch.equal(gk.launch(p, inputs, rmins), plain), p.record()
+    assert torch.equal(gk.launch(plan, inputs, rmins), plain), plan.record()
     np.testing.assert_array_equal(out.to_numpy(), _box3_golden(img, case))
 
 
@@ -465,9 +439,8 @@ def test_chain_carry_kernel_on_the_card(axis):
     for plan, inputs, rmins, params, _r in gk.group_calls(
             pipe, None, lambda p: [dict(sub_tile=s, threads=128)
                                    for s in CHAIN_SUBS[axis]]):
-        for p in _walks_of(plan):
-            assert torch.equal(gk.launch(p, inputs, rmins), gold), \
-                p.record()
+        assert torch.equal(gk.launch(plan, inputs, rmins), gold), \
+            plan.record()
 
 
 @pytest.mark.gpu
@@ -481,9 +454,11 @@ def test_stencil_chain_slide_kernel_on_the_card():
     out = app.realize()
     assert gk.launches == launches + 4
     for plan, inputs, rmins, params, _r in gk.group_calls(app.pipeline):
-        assert plan.sliding and plan.walk >= 2
-        q = copy.copy(plan)
-        q.walk, q.n_buf = 1, 1
-        assert torch.equal(gk.launch(plan, inputs, rmins),
-                           gk.launch(q, inputs, rmins))
+        plain = gk.run_plain(plan, inputs, rmins, params, inputs[0].device,
+                             {0, plan.ncy - 1})
+        ys = torch.tensor(gk.plain_rows(plan, {0, plan.ncy - 1}),
+                          device=plain.device)
+        # (u16 has no CUDA indexing: compared as i32)
+        assert torch.equal(gk.launch(plan, inputs, rmins).int()[ys],
+                           plain.int()[ys])
     np.testing.assert_array_equal(out.to_numpy(), app.reference(**data))

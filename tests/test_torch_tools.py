@@ -5,7 +5,7 @@ The cases of tests/test_tools.py, each through the port's CLI; then the
 artifacts across the packages (a .hlpipe the port writes realizes in the
 JAX package to the port's output, and the reverse), the object artifact (a
 torch.export program naming the port's kernels as custom ops) reloaded in
-a fresh process and equal to realize, and tilesearch, fitcost, abtest and
+a fresh process and equal to realize, and tilesearch, fitcost and
 `rungen --benchmarks` at small sizes."""
 import io
 import json
@@ -272,17 +272,6 @@ def test_fitcost_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "FITCOST cpu ops_per_byte=" in out
     assert '"cpu": {"ops_per_byte":' in out
-
-
-def test_abtest_switches_the_window_buffers(capsys):
-    """HALIDE_TPU_NO_PIPELINE plans a carried walk with one window buffer
-    (the JAX planner's switch, pallas_group.py:1221-1227)."""
-    from halide_tpu_torch.tools import abtest
-    assert abtest.main(["linear_blur", "--size", "64x1024", "--device",
-                        "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert "(n_buf, prefetch, walk (2, 'cp.async', 3))" in out
-    assert "((1, 'none', 3))" in out
 
 
 def test_rungen_benchmark_on_the_cpu(capsys):

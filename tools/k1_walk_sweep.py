@@ -1,18 +1,15 @@
-"""Sweeps of the stencil-group kernel (K1) on the card: sub-tile x threads,
-the staging split, and the band walk's length.
+"""Sweeps of the stencil-group kernel (K1) on the card: sub-tile x threads
+and the staging split.
 
-    python tools/k1_walk_sweep.py [--out F]  # the first three, then the fit
-    python tools/k1_walk_sweep.py --carry [--out F]   # the carry, its fit
-    python tools/k1_walk_sweep.py --fit F    # only the fits, from a saved F
+    python tools/k1_walk_sweep.py [--out F]  # both, then the fit
+    python tools/k1_walk_sweep.py --fit F    # only the fit, from a saved F
     python tools/k1_walk_sweep.py --pow      # nl_means: x * x against powf
 
 At the canonical sizes of `chip_smoke.py`, for stencil_chain's first and
 last groups (1536x2560 u16, 32 stencils), camera_pipe (2560x1920, tile
-2560x128), linear_blur (1536x2560x3 f32, blur_x carried along y),
-local_laplacian (1536x2560x3 u16), blur (2560x1536 u16), interpolate
-(1536x2560x4 f32) and stencil_chain's slide=512 branch (its four groups,
-15 members each carried along x; a point that cannot carry them all is
-left out):
+2560x128), linear_blur (1536x2560x3 f32), local_laplacian (1536x2560x3
+u16), blur (2560x1536 u16), interpolate (1536x2560x4 f32) and
+stencil_chain's slide=512 branch (its four groups, 15 members each):
 
 - sub-tile x threads: each group planned again at sub-tiles from 32x16 to
   256x64 and 128x128 (`SUB_TILES`), and 128, 256, 512 and 1024 threads a
@@ -27,19 +24,6 @@ left out):
   only stage its windows, and to only compute (from whatever shared memory
   holds), for the bytes-bound groups (blur, linear_blur, interpolate,
   local_laplacian) and stencil_chain's last and camera_pipe's;
-- the walk: the band-walk groups (linear_blur, stencil_chain's last,
-  camera_pipe) walking 1, 2 and 4 sub-tile rows a block, with one window
-  buffer and with two, each checked equal to the walk off;
-- the carry (`--carry` runs only this): the groups that carry members,
-  linear_blur (blur_x along y) and stencil_chain's slide=512 branch (four
-  groups, every stage along x), as planned, with no carry (the rule's own
-  plan), carried at every sub-tile of `CARRY_SUBS` x threads that fits,
-  and at the planned sub-tile walking `CARRY_WALKS` sub-tiles a block with
-  one window buffer and with two, each checked equal to the plan with no
-  carry; then the walk whose times, with two window buffers where a group
-  takes them and one elsewhere (the planner's choice), lose least against
-  each group's fastest (the geometric mean of the ratios): the rule
-  `group_kernel._CARRY_WALK`;
 - pow (`--pow` runs only this): nl_means's box sums (1536x2560x3 f32,
   patch 7, search 7, tile 256x64) with `pow(a - b, 2.0)` compiled as
   x * x, what eval_torch and the kernel compute (as XLA's simplifier does
@@ -59,7 +43,6 @@ the card held while the host enqueues (chip_smoke.event_ms).
 from __future__ import annotations
 
 import argparse
-import copy
 import itertools
 import json
 import math
@@ -72,10 +55,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-CARRY_WALKS = (1, 2, 3, 4, 6, 8, 12, 16)
-CARRY_SUBS = [(16, 32), (16, 64), (16, 128), (32, 16), (32, 32), (32, 64),
-              (32, 128), (64, 8), (64, 16), (64, 32), (64, 64), (128, 8),
-              (128, 16), (128, 32), (256, 8), (256, 16)]
 SUB_TILES = [(32, 16), (64, 16), (128, 16), (256, 16), (32, 32), (64, 32),
              (32, 64), (64, 64), (128, 32), (128, 64), (32, 128), (64, 128),
              (128, 128), (256, 32), (256, 64)]
@@ -126,109 +105,6 @@ def print_fit(groups, saved_rule):
           flush=True)
 
 
-def carry_fit(carry):
-    """-> {walk: (geometric-mean loss, each group's ratio)} for every walk
-    that all the carried groups ran, and the walk that loses least: each
-    group at that walk with two window buffers where it ran them (the
-    planner takes two where they fit), against its fastest walk."""
-    walks = set.intersection(*({int(k.split("x")[0]) for k in g["walks"]}
-                               for g in carry))
-    losses = {}
-    for w in sorted(walks):
-        ratios = {g["group"]: g["walks"].get(f"{w}x2", g["walks"].get(
-            f"{w}x1")) / min(g["walks"].values()) for g in carry}
-        losses[w] = (math.exp(sum(math.log(r) for r in ratios.values())
-                              / len(ratios)), ratios)
-    best = min(losses, key=lambda w: (losses[w][0], w))
-    return {"walk": best, "loss": losses[best][0], "losses": losses}
-
-
-def sweep_carry(cs, gk, time_of):
-    """The groups that carry members, linear_blur's (along y) and
-    stencil_chain slide=512's four (along x): each at the planned point,
-    the rule's plan with no carry, and carried at every sub-tile of
-    `CARRY_SUBS` x threads that fits (walk as planned); then at the
-    planned sub-tile walking `CARRY_WALKS` sub-tiles with one and two
-    window buffers. Every variant is checked equal to the plan with no
-    carry. -> [{"group", "axis", "planned", "planned_ms", "no_carry",
-    "points", "walks": {"<walk>x<n_buf>": ms}}]."""
-    from halide_tpu_torch.apps import linear_blur, stencil_chain
-    from halide_tpu_torch.ops import build
-    work = []
-    for name, make in (
-            ("linear_blur", lambda: linear_blur.build(1536, 2560)),
-            ("stencil_chain_slide512", lambda: stencil_chain.build(
-                1536, 2560, 32, slide=512))):
-        app = make()
-        app.bind(app.make_inputs(0))
-        app.realize()
-        calls = gk.group_calls(app.pipeline)
-        plain = [c[0] for c in gk.group_calls(app.pipeline, replan=lambda p:
-                                              [dict(carry=False)])]
-        for (plan, inputs, rmins, _pa, _r), q in zip(calls, plain):
-            pts = [v for v, *_x in gk.group_calls(
-                app.pipeline, replan=lambda p, f=plan.f: [
-                    dict(sub_tile=st, threads=nt) for st in CARRY_SUBS
-                    for nt in gk._THREADS] if p.f is f else [])
-                if v.sliding == plan.sliding]
-            work.append((f"{name}/{plan.f.name}", plan, q, pts, inputs,
-                         rmins))
-    todo = {v.symbol: v for _n, plan, q, pts, _i, _m in work
-            for v in [plan, q] + pts}
-    print(f"{len(todo)} carried sources to build", flush=True)
-    with ThreadPoolExecutor(8) as pool:
-        for f in [pool.submit(gk.build, v) for v in todo.values()]:
-            f.result()
-    out = []
-    for label, plan, q, pts, inputs, rmins in work:
-        base = gk.launch(q, inputs, rmins)
-
-        def timed(v, what):
-            if not torch.equal(gk.launch(v, inputs, rmins), base):
-                sys.exit(f"{label}: {what} changes the values")
-            return time_of(v, inputs, rmins)
-        rec = plan.record()
-        g = {"group": label, "axis": rec["axis"],
-             "planned": {k: rec[k] for k in (
-                 "sub_tile", "threads", "walk", "n_buf", "smem_bytes",
-                 "sliding")},
-             "ptxas": build.ptxas.get(plan.symbol, []),
-             "planned_ms": timed(plan, "the planned carry"),
-             "no_carry": {"sub_tile": [q.sx, q.sy], "threads": q.threads,
-                          "smem_bytes": q.record()["smem_bytes"],
-                          "ms": time_of(q, inputs, rmins)},
-             "points": [], "walks": {}}
-        for v in pts:
-            terms = next(c for c in v.candidates
-                         if c["threads"] == v.threads)
-            g["points"].append({
-                "sub_tile": [v.sx, v.sy], "threads": v.threads,
-                "smem_bytes": v.record()["smem_bytes"],
-                "ms": timed(v, f"sub-tile {v.sx}x{v.sy}"),
-                "terms": {k: t for k, t in terms.items()
-                          if k not in ("carried", "dropped")}})
-        for w, n_buf in itertools.product(CARRY_WALKS, (1, 2)):
-            v = copy.copy(plan)
-            v.walk, v.n_buf = w, n_buf
-            try:
-                v.shape()
-            except ValueError:      # two buffers pass 227 KB
-                continue
-            g["walks"][f"{w}x{n_buf}"] = timed(v, f"walk {w}x{n_buf}")
-        out.append(g)
-        fast = min(g["points"], key=lambda t: t["ms"]) if g["points"] \
-            else None
-        print(json.dumps({"carry": label, "planned": [
-            rec["sub_tile"], rec["threads"], g["planned_ms"]],
-            "no_carry": g["no_carry"], "fastest_carried": fast and [
-                fast["sub_tile"], fast["threads"], fast["ms"]],
-            "points": [[t["sub_tile"], t["threads"], round(t["ms"], 4)]
-                       for t in g["points"]],
-            "walks": {k: round(v, 4) for k, v in g["walks"].items()}}),
-            flush=True)
-    return out
-
-
 def sweep_pow(cs, gk, time_of):
     """nl_means's group built with pow(x, 2) as x * x (as planned) and as
     powf (`pow_is_square` off in the emitter and the plain version alike,
@@ -271,8 +147,6 @@ def sweep_pow(cs, gk, time_of):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--fit", help="a k1_sweep.json to fit the rule to")
-    ap.add_argument("--carry", action="store_true",
-                    help="only the carried walk's sweep and its fit")
     ap.add_argument("--pow", action="store_true",
                     help="only nl_means's group with x * x against powf")
     ap.add_argument("--out", default=str(ROOT / "build" / "k1_sweep.json"),
@@ -281,11 +155,7 @@ def main():
     from halide_tpu_torch.ops import group_kernel as gk
     rule = (gk._WARPS_FULL, gk._BYTE_OPS, gk._SYNC)
     if args.fit:
-        saved = json.loads(Path(args.fit).read_text())
-        if saved.get("groups"):
-            print_fit(saved["groups"], rule)
-        if saved.get("carry"):
-            print(json.dumps({"carry_fit": carry_fit(saved["carry"])}))
+        print_fit(json.loads(Path(args.fit).read_text())["groups"], rule)
         return
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -303,45 +173,33 @@ def main():
     if args.pow:
         print(json.dumps({"pow": sweep_pow(cs, gk, time_of)}), flush=True)
         return
-    if args.carry:
-        carry = sweep_carry(cs, gk, time_of)
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"card": cs.card_line(), "carry": carry,
-                                   "rule": gk._CARRY_WALK}))
-        fitted = carry_fit(carry)
-        print(json.dumps({"carry_fit": fitted,
-                          "rule_as_built": gk._CARRY_WALK,
-                          "loss_of_the_rule_as_built": fitted["losses"].get(
-                              gk._CARRY_WALK, [None])[0]}), flush=True)
-        return
-    # (name, maker, which group calls, sub-tile sweep, split, walk)
+    # (name, maker, which group calls, sub-tile sweep, split)
     apps = [
         ("stencil_chain", lambda: stencil_chain.build(1536, 2560, 32,
                                                       kernel=True),
-         (0, 3), True, (3,), (3,)),
+         (0, 3), True, (3,)),
         ("camera_pipe", lambda: camera_pipe.build(2560, 1920, kernel=True,
                                                   tile=(2560, 128)),
-         (0,), True, (0,), (0,)),
+         (0,), True, (0,)),
         ("linear_blur", lambda: linear_blur.build(1536, 2560), (0,), True,
-         (0,), (0,)),
+         (0,)),
         ("local_laplacian", lambda: local_laplacian.build(1536, 2560), (0,),
-         True, (0,), ()),
+         True, (0,)),
         ("blur", lambda: blur.build(2560, 1536, tile=(256, 128)), (0,),
-         True, (0,), ()),
+         True, (0,)),
         ("interpolate", lambda: interpolate.build(1536, 2560), (0,), True,
-         (0,), ()),
+         (0,)),
         ("stencil_chain_slide512", lambda: stencil_chain.build(
-            1536, 2560, 32, slide=512), (0, 1, 2, 3), True, (), ()),
+            1536, 2560, 32, slide=512), (0, 1, 2, 3), True, ()),
     ]
     # plan every point first, then build them all together
-    work = []          # (label, planned call, [(kind, key, plan)], walk)
-    for name, make, which, sweep, split, walks in apps:
+    work = []          # (label, planned call, [(kind, key, plan)])
+    for name, make, which, sweep, split in apps:
         app = make()
         app.bind(app.make_inputs(0))
         app.realize()
         calls = gk.group_calls(app.pipeline)
-        for ci in sorted(set(which) | set(split) | set(walks)):
+        for ci in sorted(set(which) | set(split)):
             plan, inputs, rmins, params, _r = calls[ci]
             kws = []
             if ci in which and sweep:
@@ -361,10 +219,9 @@ def main():
                     replan=lambda p, f=plan.f, kws=kws: kws if p.f is f
                     else [])]
             work.append((f"{name}/{plan.f.name}",
-                         (plan, inputs, rmins, params), variants,
-                         ci in walks))
+                         (plan, inputs, rmins, params), variants))
     plans = {}
-    for _label, (plan, *_r), variants, _w in work:
+    for _label, (plan, *_r), variants in work:
         plans[plan.symbol] = plan
         for _k, _key, q in variants:
             plans[q.symbol] = q
@@ -373,8 +230,8 @@ def main():
         for f in [pool.submit(gk.build, p) for p in plans.values()]:
             f.result()
     report = {"card": cs.card_line(), "rule": list(rule), "groups": [],
-              "split": [], "walk": []}
-    for label, (plan, inputs, rmins, _params), variants, walk in work:
+              "split": []}
+    for label, (plan, inputs, rmins, _params), variants in work:
         print(json.dumps({"group": label, "planned": plan.record(),
                           "ptxas": build.ptxas.get(plan.symbol, [])}),
               flush=True)
@@ -382,9 +239,7 @@ def main():
         t_plan = time_of(plan, inputs, rmins)
         points = []
         for kind, vkey, q in variants:
-            # a point that drops a carry the planned sub-tile keeps is not
-            # the schedule's plan
-            if kind != "point" or q.sliding != plan.sliding:
+            if kind != "point":
                 continue
             if not torch.equal(gk.launch(q, inputs, rmins), want):
                 sys.exit(f"{label}: sub-tile {vkey} changes the values")
@@ -412,24 +267,6 @@ def main():
             ms["all_again"] = time_of(plan, inputs, rmins)
             report["split"].append({"group": label, "ms": ms})
             print(json.dumps({"split": label, "ms": ms}), flush=True)
-        if walk and plan.band_walk:
-            off = copy.copy(plan)
-            off.walk, off.n_buf = 1, 1
-            base = gk.launch(off, inputs, rmins)
-            ms = {"planned": t_plan, "off": time_of(off, inputs, rmins)}
-            for w, n_buf in itertools.product((1, 2, 4), (1, 2)):
-                q = copy.copy(plan)
-                q.walk, q.n_buf = w, n_buf
-                try:
-                    q.shape()
-                except ValueError:         # two buffers pass 227 KB
-                    continue
-                if not torch.equal(gk.launch(q, inputs, rmins), base):
-                    sys.exit(f"{label}: walk {w}, {n_buf} buffers changes "
-                             "the values")
-                ms[f"{w}x{n_buf}"] = time_of(q, inputs, rmins)
-            report["walk"].append({"group": label, "ms": ms})
-            print(json.dumps({"walk": label, "ms": ms}), flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report))

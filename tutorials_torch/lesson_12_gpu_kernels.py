@@ -10,8 +10,9 @@ group and built with nvcc for sm_90a):
                      one block each (the grid)
     compute_at    -> producer evaluated inside the kernel, its window held
                      in shared memory
-    parallel(yo)  -> blocks run at once (with full-width tiles it asks for
-                     a band walk: a block walks consecutive sub-tiles)
+    parallel(yo)  -> blocks run at once (with full-width tiles the plan
+                     records a band walk, the JAX planner's band split;
+                     a block still computes one sub-tile)
     vectorize(xi) -> advisory; a block's threads already cover the tile
 
 On the CPU the same plan runs as its plain PyTorch version; the schedule
