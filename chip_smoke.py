@@ -129,6 +129,12 @@ Then it drives the port's main paths through `App.bind` /
   path and fc on the einsum path, the planning and the cached realize on the host clock,
   the realize by CUDA events with its TFLOP/s, the device time of its
   convolution and einsum calls timed alone, and its breakdown;
+- the `stage_kernel` phase: local_laplacian (1536x2560x3), camera_pipe
+  (2560x1920, tile 2560x128) and resnet_50 (batch 4) realized once more
+  with their plans dropped, so that no CUDA graph replays them: the stage
+  kernel's count equal to the stages it takes; then each stage's kernel
+  on the arrays that realize gave it, against eval_torch's evaluation of
+  the same stage on the same arrays, and timed beside its bytes bound;
 - the `tutorials` phase: each lesson of tutorials_torch/ run with
   main("cuda"), with its seconds and the K1 launches of all 30.
 
@@ -577,17 +583,21 @@ def run_app(app, data, tile_note, tol, rtol=0.0, frac=0.0, cap=math.inf,
 
 def plan_groups(apps):
     """Realize each (bound) app once with its groups planned and not
-    computed (`group_kernel.planning`), so that every group's source is
-    known before any kernel runs. A rejected plan fails. -> the plans."""
+    computed (`group_kernel.planning`) and its whole-array stages' kernels
+    planned and not built (`stage_kernel.collecting`), so that every
+    group's and stage's source is known before any kernel runs. A rejected
+    plan fails. -> (the group plans, the stage kernels' specs)."""
     from halide_tpu_torch.ops import group_kernel as gk
+    from halide_tpu_torch.ops import stage_kernel as sk
     plans = []
     gk.rejects.clear()
-    with gk.planning(lambda plan, *_a: plans.append(plan)):
+    with gk.planning(lambda plan, *_a: plans.append(plan)), \
+            sk.collecting() as stages:
         for app in apps:
             app.realize()
     if gk.rejects:
         raise SystemExit(f"rejected group plans: {dict(gk.rejects)}")
-    return plans
+    return plans, stages
 
 
 def div8_group(width, height, seed=0):
@@ -1919,7 +1929,86 @@ def resnet_phase(card, timer, ktimer, dev, **kw):
     say(f"resnet_50 on {card}: " + json.dumps(out))
     if dev.type == "cuda":
         breakdown(app)
-    return out
+    return out, app
+
+
+def stage_phase(app, note, flush):
+    """The stage kernel on `app`'s main path (bound on the card): its count
+    (`stage_kernel.fused`), zeroed just before an eager realize (the plan
+    cache cleared, so that no CUDA graph replays it), must equal the
+    stages it takes; then every whole-array stage of that realize is made
+    again (`stage_kernel.stage_calls`), and each taken stage's kernel is
+    launched on the arrays it read there and held against eval_torch's
+    evaluation of the same stage on the same arrays (`_evaluate_func`
+    under `stage_kernel.declining`): the same shape, strides and dtype,
+    integers bit for bit, floats within 1e-5 of the stage's largest value.
+    Both are timed (the kernel's device time after an L2 flush, median of
+    20; the plain version's, median of 3) beside the kernels' bytes bound
+    (each input read once, the output written once). -> its row of the
+    kernel table."""
+    from halide_tpu_torch.eval_torch import Ctx
+    from halide_tpu_torch.ops import stage_kernel as stk
+    from halide_tpu_torch.pipeline import _evaluate_func, last_realize
+    dev = torch.device("cuda")
+    app.pipeline._plan_cache.clear()
+    stk.fused = 0
+    app.realize()
+    torch.cuda.synchronize()
+    fused = stk.fused
+    params = last_realize(app.pipeline, dev)[4]
+    calls = stk.stage_calls(app.pipeline, dev)
+    taken = [c for c in calls if not isinstance(c[3], str)]
+    if fused != len(taken):
+        declined = [c[3] for c in calls if c not in taken]
+        raise SystemExit(f"{app.name}: the realize took {fused} stages to "
+                         f"the stage kernel, its stages {len(taken)} "
+                         f"(declined: {declined})")
+    k_ms = p_ms = 0.0
+    nbytes, err, rel = 0, 0.0, 0.0
+    for f, box, before, spec, _out in taken:
+        arrays = [before[tid].arrays[vi] for tid, vi in spec.slots]
+        ctx0 = Ctx(0, {}, {}, before, params, dev)
+
+        def plain():
+            with stk.declining("the stage kernel's plain version"):
+                return _evaluate_func(f, box, ctx0).arrays[0]
+
+        def kernel():
+            return stk.launch(spec, arrays, dev)
+
+        got, want = kernel(), plain()
+        if (got.shape, got.stride(), got.dtype) != \
+                (want.shape, want.stride(), want.dtype):
+            raise SystemExit(
+                f"{app.name} {f.name}: kernel {tuple(got.shape)} "
+                f"{got.stride()} {got.dtype}, plain version "
+                f"{tuple(want.shape)} {want.stride()} {want.dtype}")
+        if want.is_floating_point():
+            e = float((got.double() - want.double()).abs().max())
+            scale = max(float(want.double().abs().max()), 1e-30)
+            if not e <= 1e-5 * scale:
+                raise SystemExit(f"{app.name} {f.name}: the kernel is off "
+                                 f"its plain version by {e} (largest "
+                                 f"value {scale})")
+            err, rel = max(err, e), max(rel, e / scale)
+        elif not torch.equal(got, want):
+            raise SystemExit(f"{app.name} {f.name}: the kernel differs "
+                             "from its plain version")
+        k_ms += event_ms(kernel, 20, flush, hold=True)
+        p_ms += event_ms(plain, 3, flush)
+        nbytes += spec.bytes
+    row = kernel_row(
+        f"stage kernel ({note}, {len(taken)} stages)",
+        "halide_tpu_torch/ops/stage_kernel.py",
+        "halide_tpu_torch/eval_torch.py (a whole-array stage, one torch "
+        "kernel per expression node)", fused, err, k_ms, p_ms, nbytes,
+        (0, 0), None, max_rel_err=rel,
+        library_note="no single PyTorch call computes a fused stage")
+    say(f"{note}: {fused} stages through the stage kernel; kernels "
+        f"{k_ms:.4f} ms (device, summed), plain versions {p_ms:.2f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({nbytes} bytes); largest float "
+        f"error {err!r} ({rel!r} of the stage's largest value)")
+    return row
 
 
 def tutorials_phase(dev):
@@ -1988,6 +2077,7 @@ def main():
     from halide_tpu_torch.ops import group_kernel as gk
     from halide_tpu_torch.ops import rowhist_kernel as rk
     from halide_tpu_torch.ops import scan_kernel as sk
+    from halide_tpu_torch.ops import stage_kernel as stk
 
     phase("plan")
     app_b = blur.build(2560, 1536, tile=(256, 128))
@@ -2109,16 +2199,17 @@ def main():
                  [2560, 1536])
     app_ds.realize = lambda device=None: p_ds.realize([2560, 1536],
                                                       mesh=mesh_ds)
-    plans = plan_groups([app_b, app_l, app_p, app_ll, app_s, app_sl, app_c,
-                         app_c64, app_8, app_unt, app_hrt, app_nl, app_co,
-                         app_bg, app_bgu, app_sp, app_cm, app_e, app_tr,
-                         app_rb]
-                        + list(apps_in.values()) + list(apps_h.values())
-                        + [a for _m, _d, au in auto.values()
-                           for a, _r in au.values()]
-                        + app_ts + app_ch + [app_gr, app_ds])
+    plans, stage_specs = plan_groups(
+        [app_b, app_l, app_p, app_ll, app_s, app_sl, app_c, app_c64, app_8,
+         app_unt, app_hrt, app_nl, app_co, app_bg, app_bgu, app_sp, app_cm,
+         app_e, app_tr, app_rb]
+        + list(apps_in.values()) + list(apps_h.values())
+        + [a for _m, _d, au in auto.values() for a, _r in au.values()]
+        + app_ts + app_ch + [app_gr, app_ds])
     sources = {p.symbol: p for p in plans}
-    say(f"{len(plans)} group plans, {len(sources)} kernel sources")
+    stage_specs = list({s.key: s for s in stage_specs}.values())
+    say(f"{len(plans)} group plans, {len(sources)} kernel sources; "
+        f"{len(stage_specs)} stage kernel sources")
 
     phase("build")
     with ThreadPoolExecutor(8) as pool:
@@ -2128,6 +2219,9 @@ def main():
         k3_parts = {n: pool.submit(k3_build, [("ROWHIST_PART", n)])
                     for n in (1, 2)}
         jobs += [pool.submit(gk.build, p) for p in sources.values()]
+        # the stage kernels in 8 translation units, built side by side
+        jobs += [pool.submit(stk.build, stage_specs[k::8]) for k in range(8)
+                 if stage_specs[k::8]]
         for f in jobs + list(k3_parts.values()):
             f.result()
         k3_parts = {n: f.result() for n, f in k3_parts.items()}
@@ -2663,8 +2757,16 @@ def main():
     # resnet_50 at the app's canonical size through the convolution and
     # einsum paths
     phase("resnet_50")
-    rn = resnet_phase(card, timer, ktimer, cuda)
+    rn, app_rn = resnet_phase(card, timer, ktimer, cuda)
     say(f"resnet_50 on {card}: " + json.dumps(rn))
+
+    # the stage kernel on three main paths, each stage against its plain
+    # version on the arrays the main path gave it
+    phase("stage_kernel")
+    for app, note in ((app_ll, "local_laplacian 1536x2560x3 u16"),
+                      (app_c, "camera_pipe 2560x1920 u8, tile 2560x128"),
+                      (app_rn, "resnet_50 batch 4, 224x224")):
+        kernels.append(stage_phase(app, note, flush))
 
     # the port's 30 lessons, each main("cuda")
     phase("tutorials")

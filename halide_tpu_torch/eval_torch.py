@@ -128,13 +128,15 @@ class Ctx:
     """An evaluation context. `fold`: inline reductions fold point by point
     in RDom order, r.x innermost, with no contraction path (K1's plain
     version, which must sum in the kernel's order). `trace`: the
-    pipeline's Trace, which records each print's value."""
+    pipeline's Trace, which records each print's value. `stages`: where
+    given, the plan's stage kernels by Func (ops/stage_kernel), kept
+    across its realizes."""
     __slots__ = ("ndim", "axes", "bindings", "realizations", "params",
-                 "device", "memo", "fold", "trace")
+                 "device", "memo", "fold", "trace", "stages")
 
     def __init__(self, ndim: int, axes: Dict[str, Axis], bindings: dict,
                  realizations: Dict[int, Realized], params: dict,
-                 device="cpu", fold: bool = False, trace=None):
+                 device="cpu", fold: bool = False, trace=None, stages=None):
         self.ndim = ndim
         self.axes = axes
         self.bindings = bindings
@@ -144,6 +146,7 @@ class Ctx:
         self.memo: dict = {}
         self.fold = fold
         self.trace = trace
+        self.stages = stages
 
     def with_bindings(self, bindings: dict) -> "Ctx":
         return Ctx(self.ndim, self.axes, bindings, self.realizations,
@@ -1032,6 +1035,31 @@ _INT_CHUNK = 1 << 24
 
 _reduce_instance = [0]
 
+# while set (`contraction_probe`), the contraction paths raise
+# `Contraction` where they would call the library, and compute nothing
+_PROBE = [False]
+
+
+class Contraction(Exception):
+    """An inline sum that would be lowered to a library contraction (its
+    path: "conv" or "einsum"), raised while `contraction_probe` holds."""
+
+
+@contextlib.contextmanager
+def contraction_probe():
+    """While it holds, an evaluation raises `Contraction` where an inline
+    sum would take the convolution or einsum path (the same checks, made
+    on whatever tensors the evaluation holds: meta ones do), and the
+    counts of `reduce_paths` are left as they were."""
+    saved = collections.Counter(reduce_paths)
+    _PROBE[0] = True
+    try:
+        yield
+    finally:
+        _PROBE[0] = False
+        reduce_paths.clear()
+        reduce_paths.update(saved)
+
 
 def reduce_identity(op: str, t: Type):
     """The value a reduction of values of Type t starts from (the JAX
@@ -1412,6 +1440,8 @@ def try_conv_reduce(e: Expr, ctx: Ctx, red_axes_names):
 
     # torch's layouts: input [N, C, S...], weight [O, I, S...]
     nsp = len(spatial)
+    if _PROBE[0]:
+        raise Contraction("conv")
     conv = (torch.nn.functional.conv1d, torch.nn.functional.conv2d,
             torch.nn.functional.conv3d)[nsp - 1]
     with contract_precision(), spans.span(spans.CONTRACT):
@@ -1447,6 +1477,8 @@ def try_einsum_reduce(e: Expr, ctx: Ctx, red_np_axes):
     full = full_shape(ctx, list(ctx.axes.values()))
     if math.prod(full) < _EINSUM_MIN_FULL:
         return None
+    if _PROBE[0]:
+        raise Contraction("einsum")
     ops, positions = [], []
     for fct in factors:
         arr = eval_array(fct, ctx)

@@ -274,18 +274,19 @@ HL_FN bool hl_arg_better(T v, T best, bool first) {
 }
 
 // Shifts by a count outside [0, bits) give 0 (or the sign for a right
-// shift of a negative value), as XLA's shifts do.
+// shift of a negative value), as XLA's shifts do; a u64 count is compared
+// as unsigned.
 template <typename T>
 HL_FN T hl_shl(T a, T b) {
   constexpr int bits = 8 * (int)sizeof(T);
-  if (b < 0 || (long long)b >= bits) return (T)0;
+  if (b < 0 || (unsigned long long)b >= (unsigned long long)bits) return (T)0;
   return (T)((hl_wide_u<T>)a << (int)b);
 }
 
 template <typename T>
 HL_FN T hl_shr(T a, T b) {
   constexpr int bits = 8 * (int)sizeof(T);
-  if (b < 0 || (long long)b >= bits) {
+  if (b < 0 || (unsigned long long)b >= (unsigned long long)bits) {
     if constexpr (std::is_signed<T>::value) return a < 0 ? (T)-1 : (T)0;
     return (T)0;
   }
@@ -313,7 +314,8 @@ HL_FN T hl_abs(T a) {
 // --- casts --------------------------------------------------------------------
 
 // Halide cast: to bool is != 0; float -> integer truncates toward zero and
-// then wraps into the destination width; integer narrowing wraps.
+// then wraps into the destination width (float -> u64 as XLA converts);
+// integer narrowing wraps.
 template <typename To, typename From>
 HL_FN To hl_cast(From v) {
   if constexpr (std::is_same<To, From>::value) {
@@ -329,6 +331,18 @@ HL_FN To hl_cast(From v) {
     return v != (From)0;
   } else if constexpr (std::is_floating_point<To>::value) {
     return (To)v;
+  } else if constexpr (std::is_floating_point<From>::value &&
+                       std::is_same<To, uint64_t>::value) {
+    // as eval_torch's _float_to_u64 (XLA's conversion): NaN and values
+    // below 0 give 0, 2^64 and above 2^64 - 1; from 2^63 on, 2^63 less
+    // is truncated and the top bit set; each part capped at 2^63 - 2^40
+    if (!(v > (From)0)) return 0;
+    if (v >= (From)18446744073709551616.0) return ~(uint64_t)0;
+    const bool big = v >= (From)9223372036854775808.0;
+    From w = big ? v - (From)9223372036854775808.0 : v;
+    if (w > (From)9223370937343148032.0) w = (From)9223370937343148032.0;
+    const uint64_t r = (uint64_t)(int64_t)w;
+    return big ? r ^ ((uint64_t)1 << 63) : r;
   } else if constexpr (std::is_floating_point<From>::value) {
     return (To)(uint64_t)(int64_t)v;
   } else {

@@ -1237,27 +1237,20 @@ def group_calls(pipeline, device=None, replan=None) -> list:
     made again so that the kernel can be held against its plain version
     (the tests, the chip check): each plan comes from the realize's planned
     graph, and the groups' inputs from evaluating every stored stage
-    whole-array over the box that realize gave it. With `replan` (plan ->
-    a list of keyword arguments of `plan_group`: sub_tile, threads, part),
-    each group is planned again once for each of them, in its place (the
-    sweep); a variant the plan cannot take is left out. -> [(plan, inputs,
-    real_mins, params, realizations)]. A realize keeps none of its tensors
-    for this."""
-    from ..buffer import Buffer
-    from ..pipeline import _evaluate_func, gather_graph, resolve_device
-    dev = resolve_device(device)
-    planned = list(pipeline._plan_cache.values())[-1].planned
+    whole-array by eval_torch over the box that realize gave it
+    (`pipeline.last_realize`). With `replan` (plan -> a list of keyword
+    arguments of `plan_group`: sub_tile, threads, part), each group is
+    planned again once for each of them, in its place (the sweep); a
+    variant the plan cannot take is left out. -> [(plan, inputs,
+    real_mins, params, realizations)]."""
+    from ..pipeline import _evaluate_func, last_realize
+    from .stage_kernel import declining
+    dev, planned, g, realz, params, stored = last_realize(pipeline, device)
     plans = [p for p in planned["groups"].values() if p]
-    g = gather_graph(pipeline.outputs)
-    realz: Dict[int, Realized] = {}
-    for t in g.inputs.values():
-        buf = t if isinstance(t, Buffer) else t.get()
-        realz[id(t)] = Realized((buf.data.to(dev),), buf._mins, buf.name)
-    params = {id(p): p.get() for p in g.params.values()}
     ctx0 = Ctx(0, {}, {}, realz, params, dev)
-    for fn in g.funcs:
-        box = planned["boxes"].get(id(fn))
-        if id(fn) in g.materialized and box is not None and box.defined():
+    # the groups' inputs as eval_torch makes them, with no stage kernel
+    with declining("a group's inputs made again"):
+        for fn, box in stored:
             realz[id(fn)] = _evaluate_func(fn, box, ctx0)
     if replan is not None:
         variants = []

@@ -190,12 +190,16 @@ def _check_shift(pipeline, sizes, plans, dummy_shape):
 def _run_shards(runs, chosen, plans, devs, slabs_of):
     """Run every shard's program, one after another, each with its own
     local tensors -> per shard, the flat list of output value tensors."""
+    from ..ops.stage_kernel import declining
     from ..specialize import apply_all, restore
     results = []
     undo = apply_all(chosen)
     try:
         for i, dev in enumerate(devs):
-            out = runs[str(dev)](_local_inputs(plans, i, devs, slabs_of))
+            # a shard's whole-array stages stay with eval_torch
+            with declining("a sharded realize"):
+                out = runs[str(dev)](_local_inputs(plans, i, devs,
+                                                   slabs_of))
             # run() returns per-output tuples of value tensors: flatten
             # (tuple-valued Funcs contribute one tensor per tuple member)
             results.append([v for vals in out for v in vals])

@@ -677,15 +677,21 @@ class Pipeline:
                     (arr,), mins, getattr(t, "name", "buf"))
             for fid, (mins, arrs) in presets.items():
                 realizations[fid] = Realized(arrs, mins, "memo")
-            if "boxes" not in planned:
+            first = "boxes" not in planned
+            if first:
                 with spans.span(spans.BOUNDS):
                     planned["boxes"] = self._bounds(g, regions, realizations,
                                                     param_vals)
                 planned["groups"] = {}
+                planned["stages"] = {}
             boxes = planned["boxes"]
             trace = self.trace
             ctx0 = Ctx(0, {}, {}, realizations,
-                       {**param_vals, **(traced or {})}, dev, trace=trace)
+                       {**param_vals, **(traced or {})}, dev, trace=trace,
+                       stages=planned["stages"])
+            cliques = _fusion_cliques(g)
+            if first and dev.type == "cuda":
+                _prepare_stages(g, boxes, ctx0, presets, cliques, groups)
 
             def record(fn, b, arrays):
                 fs = fn._fschedule
@@ -703,7 +709,6 @@ class Pipeline:
                         realizations[id(fn)] = _evaluate_func(fn, b, ctx0)
                         record(fn, b, realizations[id(fn)].arrays)
 
-            cliques = _fusion_cliques(g)
             deferred: Dict[int, List[Func]] = {}
             for f in g.funcs:
                 if id(f) not in g.materialized:
@@ -955,7 +960,8 @@ class Pipeline:
         """Per-stage time/memory report on `device` (None: the card).
 
         mode="stages": each materialized Func evaluated alone, whole-array
-        (no group kernel), once to warm up and once timed: attributable,
+        (no group kernel; on the card, by its stage kernel where that takes
+        it, all built first), once to warm up and once timed: attributable,
         but unfused.
         mode="fused": prefix differencing -- the pipeline truncated after
         each materialized stage, realized exactly as realize() runs it
@@ -979,15 +985,17 @@ class Pipeline:
         boxes = self._bounds(g, regions, realizations, param_vals)
         if mode == "fused":
             return self._profile_fused(g, boxes, sizes, dst, dev)
-        ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev)
+        ctx0 = Ctx(0, {}, {}, realizations, param_vals, dev, stages={})
+        stored = [(f, boxes[id(f)]) for f in g.funcs
+                  if id(f) in g.materialized and boxes.get(id(f)) is not None
+                  and boxes[id(f)].defined()]
+        if dev.type == "cuda":               # the stage kernels, one build
+            from .ops import stage_kernel
+            stage_kernel.prepare(ctx0, stage_kernel.regions_of(
+                realizations, stored), [(f, b, None) for f, b in stored])
         entries = []
         total = 0.0
-        for f in g.funcs:
-            if id(f) not in g.materialized:
-                continue
-            box = boxes.get(id(f))
-            if box is None or not box.defined():
-                continue
+        for f, box in stored:
             _evaluate_func(f, box, ctx0)           # warm-up
             got = []
             ms = _time_ms(lambda: got.append(_evaluate_func(f, box, ctx0)),
@@ -1212,10 +1220,67 @@ def _emit_debug_dump(f: Func, arrays) -> None:
         _debug_dump_cb(out, to_numpy(arr))
 
 
+def last_realize(pipeline, device=None):
+    """What `pipeline`'s last realize ran, made ready to run again on
+    `device` (the tests and tools that hold a kernel against its plain
+    version): -> (the device, its plan's planned graph, the Func graph,
+    the realizations of its inputs on the device, the Params' values by
+    id, [(Func, box)] of every stored stage in the order it ran them). A
+    realize keeps none of its tensors for this."""
+    dev = resolve_device(device)
+    planned = list(pipeline._plan_cache.values())[-1].planned
+    g = gather_graph(pipeline.outputs)
+    realz: Dict[int, Realized] = {}
+    for t in g.inputs.values():
+        buf = t if isinstance(t, Buffer) else t.get()
+        realz[id(t)] = Realized((buf.data.to(dev),), buf._mins, buf.name)
+    params = {id(p): p.get() for p in g.params.values()}
+    stored = []
+    for f in g.funcs:
+        box = planned["boxes"].get(id(f))
+        if id(f) in g.materialized and box is not None and box.defined():
+            stored.append((f, box))
+    return dev, planned, g, realz, params, stored
+
+
+def _prepare_stages(g: _Graph, boxes, ctx0: Ctx, presets, cliques,
+                    groups: bool) -> None:
+    """Plan the stage kernels of a plan's whole-array stages on its first
+    run, and build them together (ops/stage_kernel.prepare): every
+    materialized Func the run evaluates alone, reading the arrays the run
+    realizes (each over its box). A Func the group kernel may take (a
+    tiled one) or a member of its group is planned only where the run
+    evaluates it alone."""
+    from .ops import group_kernel, stage_kernel
+    stored, todo = [], []
+    for f in g.funcs:
+        box = boxes.get(id(f))
+        if id(f) not in g.materialized or box is None or not box.defined():
+            continue
+        stored.append((f, box))
+        lvl = f._fschedule.compute_level
+        if id(f) in presets or (
+                lvl.kind == "at" and id(lvl.func) in g.materialized) or (
+                groups and group_kernel.find_tile(f) is not None):
+            continue
+        todo.append((f, box, "a compute_with clique member"
+                     if id(f) in cliques else None))
+    stage_kernel.prepare(ctx0, stage_kernel.regions_of(
+        ctx0.realizations,
+        [(f, b) for f, b in stored if id(f) not in ctx0.realizations]),
+        todo)
+
+
 def _evaluate_func(f: Func, box: Box, ctx0: Ctx) -> Realized:
     """Whole-array evaluation of a Func over `box`, its update definitions
     applied in order, stored in the storage dtype of each value's Type
-    (and dumped where its schedule asks: debug_to_file)."""
+    (and dumped where its schedule asks: debug_to_file). On the card, a
+    stage of one pure definition and one value is one emitted kernel where
+    the stage kernel takes it (ops/stage_kernel)."""
+    from .ops import stage_kernel
+    real = stage_kernel.compute(f, box, ctx0)
+    if real is not None:             # one emitted kernel, on the card
+        return real
     if f.is_extern():
         return _evaluate_extern(f, box, ctx0)
     from .updates import apply_update

@@ -66,10 +66,11 @@ KINDS = ("ht.realize", "ht.prepare", "ht.gather_graph", "ht.plan_key",
          "ht.graph_reuse")
 (REALIZE, PREPARE, GATHER_GRAPH, PLAN_KEY, PLAN_BUILD, RUN, BOUNDS, STAGE,
  K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT, GRAPH_REUSE) = range(len(KINDS))
-# records the ring keeps: a 51-s window of realizes of a millisecond each
-# and more, in 22 MB (camera_pipe at 2560x1920 replays its plan in about
-# 3 ms on an H100, some 17,000 frames in 51 s)
-CAPACITY = 65536
+# records the ring keeps: a 51-s window of realizes of 0.2 ms each and
+# more (camera_pipe at 2560x1920 realizes a frame in about 0.7 ms on an
+# H100, some 72,500 frames in 51 s), 361 bytes each, whose pages are
+# taken as they are written
+CAPACITY = 1 << 18
 
 _clock = time.perf_counter_ns
 _profiling = torch._C._autograd._profiler_enabled
@@ -212,11 +213,14 @@ def counters() -> Dict[str, int]:
     hits and misses and the graph walks reused and made (pipeline), the
     plans' CUDA graphs captured and replayed and the hits on the card that
     ran eager (plan_graph), the libraries built and loaded (ops/build),
-    each kernel's launches, and the contractions lowered on eager realizes
+    each kernel's launches, the contractions lowered on eager realizes
     by path: update definitions (updates.reduce_path_counts) and, on the
-    two library paths, inline sums (eval_torch.reduce_paths)."""
+    two library paths, inline sums (eval_torch.reduce_paths), and the
+    whole-array stages on eager realizes that the stage kernel computed
+    and that it left to eval_torch on the card (ops/stage_kernel)."""
     from . import eval_torch, pipeline, plan_graph, updates
-    from .ops import build, group_kernel, rowhist_kernel, scan_kernel
+    from .ops import (build, group_kernel, rowhist_kernel, scan_kernel,
+                      stage_kernel)
     upd, inline = updates.reduce_path_counts, eval_torch.reduce_paths
     return {"plan_cache.hits": pipeline.plan_cache["hits"],
             "plan_cache.misses": pipeline.plan_cache["misses"],
@@ -233,4 +237,6 @@ def counters() -> Dict[str, int]:
             "contract.conv": upd["conv"] + inline["conv"],
             "contract.einsum": upd["einsum"] + inline["einsum"],
             "contract.unrolled": upd["unrolled"],
-            "contract.dense": upd["dense"]}
+            "contract.dense": upd["dense"],
+            "stage_kernel.fused": stage_kernel.fused,
+            "stage_kernel.declined": stage_kernel.declined}

@@ -127,13 +127,15 @@ def test_the_graph_walk_is_reused_after_the_first_realize():
 
 def test_counters_read_the_port_where_it_counts():
     from halide_tpu_torch.ops import (build, group_kernel, rowhist_kernel,
-                                      scan_kernel)
+                                      scan_kernel, stage_kernel)
     c = spans.counters()
     assert c["kernels.built"] == len(build.builds)
     assert c["kernels.loaded"] == len(build._LIBS)
     assert c["group_kernel.launches"] == group_kernel.launches
     assert c["scan_kernel.launches"] == sum(scan_kernel.launches.values())
     assert c["rowhist_kernel.launches"] == rowhist_kernel.launches
+    assert c["stage_kernel.fused"] == stage_kernel.fused
+    assert c["stage_kernel.declined"] == stage_kernel.declined
 
 
 def test_totals_add_every_record():
