@@ -23,7 +23,7 @@ _APP_MODULES = ["blur", "linear_blur", "iir_blur", "hist", "interpolate",
                 "harris", "wavelet", "gaussian_blur", "max_filter", "nl_means",
                 "conv_layer", "linear_algebra", "fft", "compositing",
                 "bilateral_grid", "bgu", "resize", "lens_blur",
-                "resnet_50"]
+                "resnet_50", "granite_4_h_micro"]
 
 
 def register(name: str):

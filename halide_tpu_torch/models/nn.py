@@ -6,7 +6,11 @@ everything composes with the same schedule/bounds machinery as image
 pipelines.
 
 Layout convention: feature maps are (c, x, y, n) funcs (c = lane dim);
-weights (co, kx, ky, ci).
+weights (co, kx, ky, ci). The sequence builders below (`linear`,
+`rms_norm`, `silu`, `softplus`) take a Func whose leading dims are the
+features and whose other dims (`rest`: positions, batch) are any list of
+Vars; a weight's dim 0 is its input feature, as torch's (out, in) layout
+read minor-first.
 """
 from __future__ import annotations
 
@@ -106,3 +110,59 @@ def softmax(name, inp, classes: int):
     f = hl.Func(name)
     f[c, n] = ex[c, n] / s[n]
     return f
+
+
+def silu(e):
+    """x * sigmoid(x), as x / (1 + exp(-x))."""
+    return e / (1.0 + hl.exp(-e))
+
+
+def log1p(u):
+    """log(1 + u) accurate for small u: log(v) * u / (v - 1) with v = 1 + u
+    rounded (Goldberg's correction), u itself where v rounds to 1."""
+    v = 1.0 + u
+    return hl.select(v == 1.0, u, hl.log(v) * u / (v - 1.0))
+
+
+def softplus(e, threshold: float = 20.0):
+    """log(1 + exp(x)), and x itself above `threshold` (torch's
+    softplus)."""
+    return hl.select(e > threshold, e, log1p(hl.exp(e)))
+
+
+def linear(name, w, x, n_in: int, out, rest):
+    """f[*out, *rest] = sum_r w[r, *out] * x[r, *rest]: a projection, one
+    einsum (cuBLAS) on the card. `n_in` is the reduced feature extent;
+    `out` the Vars of the output features (more than one where the weight
+    is split, e.g. (head dim, head))."""
+    r = hl.RDom(0, n_in, f"r_{name}")
+    f = hl.Func(name)
+    f[tuple(out) + tuple(rest)] = hl.sum(
+        w[(r.x,) + tuple(out)] * x[(r.x,) + tuple(rest)])
+    f.compute_root()
+    return f
+
+
+def rms_norm(name, x, weight, width: int, eps: float, rest, lead=1,
+             extents=None):
+    """RMSNorm over x's leading `lead` dims (of `extents`, their product
+    `width`): ss[*rest] = sum of x^2 (its own stage: one einsum on the
+    card, computed once a position) and n[*feat, *rest] = x / sqrt(ss /
+    width + eps) * weight[flat feature]. -> (ss, n)."""
+    extents = list(extents or [width])
+    r = hl.RDom([(0, e) for e in extents], f"r_{name}")
+    rv = [r[i] for i in range(lead)]
+    ss = hl.Func(name + "_ss")
+    xr = x[tuple(rv) + tuple(rest)]
+    ss[tuple(rest)] = hl.sum(xr * xr)
+    ss.compute_root()
+    feat = [hl.Var(f"{name}_f{i}") for i in range(lead)]
+    flat, stride = feat[0], 1
+    for v, e in zip(feat[1:], extents[:-1]):
+        stride *= e
+        flat = flat + v * stride
+    n = hl.Func(name)
+    n[tuple(feat) + tuple(rest)] = x[tuple(feat) + tuple(rest)] / hl.sqrt(
+        ss[tuple(rest)] / float(width) + eps) * weight[flat]
+    n.compute_root()
+    return ss, n

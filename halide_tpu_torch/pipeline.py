@@ -10,7 +10,9 @@ src/Pipeline.cpp:512-1024, src/Lower.cpp:136-608). Lowering here is:
 4. evaluate each materialized stage whole-array in torch (eval_torch), its
    update definitions applied in order (updates); a tiled Func with
    `compute_at` producers goes to the stencil-group kernel
-   (ops/group_kernel), one launch for the group
+   (ops/group_kernel), one launch for the group; a stage's arrays are
+   dropped after the last stage that reads them (root lifetimes: the
+   outputs and the memoized, traced and dumped stages are kept to the end)
 5. cache the planned graph (bounds and group plans) per graph, sizes and
    bound inputs, so a repeated realize only executes; on the card, it
    replays the plan captured as one CUDA graph (plan_graph)
@@ -61,6 +63,10 @@ last_extern: dict = {}
 plan_cache = {"hits": 0, "misses": 0}
 # graph walks `_prepare` reused (hits) and made (misses) in this process
 graph_cache = {"hits": 0, "misses": 0}
+# root lifetimes: the stage arrays a plan's runs dropped after their last
+# reader, since the process started (`released`), and the largest total
+# bytes of the stage arrays live at once in the last run (`peak_bytes`)
+roots = {"released": 0, "peak_bytes": 0}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -232,6 +238,92 @@ def _fusion_cliques(g: _Graph) -> Dict[int, List[Func]]:
         for m in clique:
             out[id(m)] = clique
     return out
+
+
+def _steps(g: _Graph, boxes, cliques) -> List[tuple]:
+    """A plan's run in order, as (kind, Func, members) steps: "stage" a
+    materialized Func with the Funcs computed at it (a K1 group, or each
+    evaluated alone before it), "clique" a compute_with clique lowered
+    together when its last member is met, "tail" the members whose anchor
+    the run never evaluates, alone, at the end."""
+    steps: List[tuple] = []
+    deferred: Dict[int, List[Func]] = {}
+    for f in g.funcs:
+        box = boxes.get(id(f))
+        if id(f) not in g.materialized or box is None or not box.defined():
+            continue
+        lvl = f._fschedule.compute_level
+        if lvl.kind == "at" and id(lvl.func) in g.materialized:
+            deferred.setdefault(id(lvl.func), []).append(f)
+            continue
+        clique = cliques.get(id(f))
+        if clique is not None:
+            if f is clique[-1]:
+                steps.append(("clique", f, list(clique)))
+            continue
+        steps.append(("stage", f, deferred.pop(id(f), [])))
+    tail = [m for ms in deferred.values() for m in ms]
+    if tail:
+        steps.append(("tail", None, tail))
+    return steps
+
+
+def _stage_reads(f: Func, g: _Graph) -> set:
+    """The materialized Funcs f's definitions read (through the inline
+    Funcs they call), f itself left out."""
+    out: set = set()
+    seen: set = set()
+
+    def note(t):
+        if t is f or not isinstance(t, Func):
+            return
+        if id(t) in g.materialized:
+            out.add(id(t))
+        elif id(t) not in seen:
+            seen.add(id(t))
+            scan(t)
+
+    def scan(t):
+        if t.is_extern():
+            for src in t._extern["inputs"]:
+                note(src)
+        for e in _all_def_exprs(t):
+            _scan_expr_targets(e, note, lambda _t: None, lambda _p: None)
+
+    scan(f)
+    return out
+
+
+def _kept_roots(g: _Graph, outputs: List[Func], presets) -> set:
+    """The stages a run keeps to its end: the outputs, the memoized
+    stages (and presets), and the traced or dumped ones."""
+    keep = {id(f) for f in outputs} | set(presets)
+    for f in g.funcs:
+        fs = f._fschedule
+        if fs.memoized or fs.trace_loads or fs.trace_stores \
+                or fs.trace_realizations or fs.debug_file:
+            keep.add(id(f))
+    return keep
+
+
+def _last_readers(steps: List[tuple], g: _Graph, keep: set) -> List[list]:
+    """For each step, the materialized Funcs to drop after it: those it
+    reads last (`_stage_reads` of its Funcs), and those it makes that no
+    step reads; never one of `keep`. A Func that runs is dropped after the
+    step that makes it at the earliest."""
+    last: Dict[int, int] = {}
+    for k, (kind, f, members) in enumerate(steps):
+        made = members + ([f] if kind == "stage" else [])
+        for m in made:
+            last.setdefault(id(m), k)
+        for m in made:
+            for fid in _stage_reads(m, g):
+                last[fid] = k
+    drops: List[list] = [[] for _ in steps]
+    for fid, k in last.items():
+        if fid not in keep:
+            drops[k].append(fid)
+    return drops
 
 
 # ---------------------------------------------------------------------------
@@ -658,8 +750,10 @@ class Pipeline:
 
     def _build_fn(self, g: _Graph, regions, input_objs, param_vals, dev):
         """-> run(input tensors, memo presets, groups, traced) -> per
-        output, a tuple of tensors. The bounds pass and the group plans are
-        made on the first run and kept (the planned graph, `run.planned`);
+        output, a tuple of tensors. The bounds pass, the group plans and the
+        run's steps with each stage's last reader (`_steps`,
+        `_last_readers`) are made on the first run and kept (the planned
+        graph, `run.planned`);
         with `groups` False every group is evaluated whole-array. `traced`
         maps id(Param) to a 0-d tensor that takes the Param's place in the
         evaluation (derivative.propagate_adjoints: the bounds and the
@@ -690,8 +784,14 @@ class Pipeline:
                        {**param_vals, **(traced or {})}, dev, trace=trace,
                        stages=planned["stages"])
             cliques = _fusion_cliques(g)
-            if first and dev.type == "cuda":
-                _prepare_stages(g, boxes, ctx0, presets, cliques, groups)
+            if first:
+                planned["steps"] = _steps(g, boxes, cliques)
+                planned["release"] = _last_readers(
+                    planned["steps"], g, _kept_roots(g, self.outputs,
+                                                     presets))
+                if dev.type == "cuda":
+                    _prepare_stages(g, boxes, ctx0, presets, cliques,
+                                    groups)
 
             def record(fn, b, arrays):
                 fs = fn._fschedule
@@ -709,43 +809,41 @@ class Pipeline:
                         realizations[id(fn)] = _evaluate_func(fn, b, ctx0)
                         record(fn, b, realizations[id(fn)].arrays)
 
-            deferred: Dict[int, List[Func]] = {}
-            for f in g.funcs:
-                if id(f) not in g.materialized:
-                    continue
-                box = boxes.get(id(f))
-                if box is None or not box.defined():
-                    continue
-                lvl = f._fschedule.compute_level
-                if lvl.kind == "at" and id(lvl.func) in g.materialized:
-                    deferred.setdefault(id(lvl.func), []).append(f)
-                    continue
-                clique = cliques.get(id(f))
-                if clique is not None:
-                    if f is clique[-1]:   # lowered together when the last
-                        for m in clique:
-                            eval_standalone(m)
-                    continue
-                members = deferred.pop(id(f), [])
-                real = None
-                if groups and group_kernel.find_tile(f) is not None:
-                    real = group_kernel.try_group(
-                        f, box, ctx0, g, planned["groups"])
-                if real is not None:
-                    realizations[id(f)] = real
-                    _emit_debug_dump(f, real.arrays)
-                    # the group's output is traced as any realization is;
-                    # its members live in the kernel's shared memory and
-                    # are not
-                    record(f, box, real.arrays)
-                else:
+            live: Dict[int, int] = {}       # stage id -> its arrays' bytes
+            peak = 0
+            for (kind, f, members), drop in zip(planned["steps"],
+                                                planned["release"]):
+                if kind != "stage":     # a compute_with clique, the tail
                     for m in members:
                         eval_standalone(m)
-                    eval_standalone(f)
-            # any remaining deferred members (anchor unprocessed) run alone
-            for ms in deferred.values():
-                for m in ms:
-                    eval_standalone(m)
+                else:
+                    real = None
+                    if groups and group_kernel.find_tile(f) is not None:
+                        real = group_kernel.try_group(
+                            f, boxes[id(f)], ctx0, g, planned["groups"])
+                    if real is not None:
+                        realizations[id(f)] = real
+                        _emit_debug_dump(f, real.arrays)
+                        # the group's output is traced as any realization
+                        # is; its members live in the kernel's shared
+                        # memory and are not
+                        record(f, boxes[id(f)], real.arrays)
+                    else:
+                        for m in members:
+                            eval_standalone(m)
+                        eval_standalone(f)
+                for m in members + ([f] if kind == "stage" else []):
+                    real = realizations.get(id(m))
+                    if real is not None and id(m) not in presets:
+                        live[id(m)] = sum(a.nbytes for a in real.arrays)
+                peak = max(peak, sum(live.values()))
+                # root lifetimes: each stage's arrays go after their last
+                # reader's step
+                for fid in drop:
+                    if realizations.pop(fid, None) is not None:
+                        roots["released"] += 1
+                    live.pop(fid, None)
+            roots["peak_bytes"] = peak
             outs = []
             for f in self.outputs:
                 req, box = regions[id(f)], boxes[id(f)]

@@ -21,6 +21,9 @@ fixed (`KINDS`), so that times add up by kind, and nest so:
                                    cuDNN's convolution (eval_torch.
                                    try_conv_reduce) or torch.einsum
                                    (try_einsum_reduce), f32 and f64
+          ht.scan                  a linear recurrence of the stage's
+                                   update handed to the scan kernel K2
+                                   (updates._try_scan)
         ht.k1                      group_kernel.try_group
           ht.k1.plan               plan_group, on a group's first realize
           ht.k1.launch             group_kernel.launch
@@ -29,7 +32,7 @@ fixed (`KINDS`), so that times add up by kind, and nest so:
                                    outputs copied out (plan_graph)
 
 A realize that replays its plan's graph runs neither `ht.stage` nor
-`ht.contract`, nor counts a contraction's lowering (`counters()`'s
+`ht.contract` nor `ht.scan`, nor counts a contraction's lowering (`counters()`'s
 contract.*): the kernels replay, the host code that chose them does not.
 
 A kind's total counts the time of its outermost spans only, so a realize
@@ -63,9 +66,10 @@ import torch
 KINDS = ("ht.realize", "ht.prepare", "ht.gather_graph", "ht.plan_key",
          "ht.plan_build", "ht.run", "ht.bounds", "ht.stage", "ht.k1",
          "ht.k1.plan", "ht.k1.launch", "ht.replay", "ht.contract",
-         "ht.graph_reuse")
+         "ht.graph_reuse", "ht.scan")
 (REALIZE, PREPARE, GATHER_GRAPH, PLAN_KEY, PLAN_BUILD, RUN, BOUNDS, STAGE,
- K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT, GRAPH_REUSE) = range(len(KINDS))
+ K1, K1_PLAN, K1_LAUNCH, REPLAY, CONTRACT, GRAPH_REUSE, SCAN) = \
+    range(len(KINDS))
 # records the ring keeps: a 51-s window of realizes of 0.2 ms each and
 # more (camera_pipe at 2560x1920 realizes a frame in about 0.7 ms on an
 # H100, some 72,500 frames in 51 s), 361 bytes each, whose pages are
@@ -215,9 +219,12 @@ def counters() -> Dict[str, int]:
     ran eager (plan_graph), the libraries built and loaded (ops/build),
     each kernel's launches, the contractions lowered on eager realizes
     by path: update definitions (updates.reduce_path_counts) and, on the
-    two library paths, inline sums (eval_torch.reduce_paths), and the
+    two library paths, inline sums (eval_torch.reduce_paths), the
     whole-array stages on eager realizes that the stage kernel computed
-    and that it left to eval_torch on the card (ops/stage_kernel)."""
+    and that it left to eval_torch on the card (ops/stage_kernel), and
+    the root lifetimes (pipeline.roots): the stage arrays dropped after
+    their last reader, and the largest bytes of them live at once in the
+    last eager run."""
     from . import eval_torch, pipeline, plan_graph, updates
     from .ops import (build, group_kernel, rowhist_kernel, scan_kernel,
                       stage_kernel)
@@ -239,4 +246,6 @@ def counters() -> Dict[str, int]:
             "contract.unrolled": upd["unrolled"],
             "contract.dense": upd["dense"],
             "stage_kernel.fused": stage_kernel.fused,
-            "stage_kernel.declined": stage_kernel.declined}
+            "stage_kernel.declined": stage_kernel.declined,
+            "roots.released": pipeline.roots["released"],
+            "roots.peak_bytes": pipeline.roots["peak_bytes"]}

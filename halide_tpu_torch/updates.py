@@ -41,6 +41,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import expr as E
+from . import spans
 from .bounds import BoundsEngine, Interval
 from .eval_torch import (AVal, Axis, ClampedAVal, Ctx, Realized, _apply_binop,
                          _wrap, axis_array, eval_array, evaluate, full_shape,
@@ -624,8 +625,9 @@ def _try_scan(func, d, current, base_ctx: Ctx, rdom_axes):
             # (reference: apps/iir_blur/iir_blur_generator.cpp:13-33)
             b_arr = _unaliased(kastype(layout(eval_array(b_e, inner)), t),
                                cur)
-            scan_kernel.linear_scan(span, b_arr, init_vals, scan_np,
-                                    backward, a_const=dconst)
+            with spans.span(spans.SCAN, func.name):
+                scan_kernel.linear_scan(span, b_arr, init_vals, scan_np,
+                                        backward, a_const=dconst)
             return [cur]
         a_arr = kastype(layout(eval_array(a_e, inner)), t)
         b_arr = kastype(layout(eval_array(b_e, inner)), t)
@@ -637,8 +639,10 @@ def _try_scan(func, d, current, base_ctx: Ctx, rdom_axes):
         if f32:
             # per-element coefficient (a predicated or varying recurrence),
             # K2b
-            scan_kernel.linear_scan(span, b_arr, init_vals, scan_np,
-                                    backward, a=_unaliased(a_arr, cur))
+            a_arr = _unaliased(a_arr, cur)
+            with spans.span(spans.SCAN, func.name):
+                scan_kernel.linear_scan(span, b_arr, init_vals, scan_np,
+                                        backward, a=a_arr)
             return [cur]
         # other types: the (a, b) pair scan in log-depth rounds of torch
         # ops, exact for integers (arithmetic mod 2^bits)

@@ -17,7 +17,7 @@ PARENT = {"ht.prepare": "ht.realize", "ht.gather_graph": "ht.prepare",
           "ht.stage": "ht.run", "ht.k1": "ht.run",
           "ht.k1.plan": "ht.k1", "ht.k1.launch": "ht.k1",
           "ht.replay": "ht.run", "ht.contract": "ht.stage",
-          "ht.graph_reuse": "ht.gather_graph"}
+          "ht.graph_reuse": "ht.gather_graph", "ht.scan": "ht.stage"}
 FIRST_ONLY = ("ht.plan_build", "ht.bounds", "ht.k1.plan")
 
 
